@@ -15,7 +15,21 @@ exits non-zero):
      yardstick and the card's bound for the same work;
   4. the bench-chain configuration at Domain.structured(3, 40) (68,921
      dofs): additive two-level Schwarz with bf16 level-1 and coarse stores,
-     the M(A(x)) apply time, and the refinement to 1e-8 (B4 must launch).
+     the M(A(x)) apply time, and the refinement to 1e-8 (B4 must launch);
+  5. elasticity operator: LinElas on Domain.structured(3, 32).p2_domain()
+     (P2, 823,875 dofs, 69 M nonzeros, one face clamped), assembled through fe/ops.py and
+     laid out by auto_spmv(K, float32, dofs_per_node=3) as the RCM split
+     with a block-SELL residue; one apply against the host f64 product,
+     with_data, a fixed number of Jacobi-preconditioned GMRES iterations
+     over the format's (fn, operands) (B1 and B5 must launch), and B1 and
+     B5 against their plain versions and library calls at these shapes;
+  6. elasticity solve: LinElas on Domain.structured(3, 40) (P1, 206,763
+     dofs), one face clamped, body load, 'Use Mixed Precision' + 'TwoLevel'
+     with the rigid-body null space and 128 clusters, to 1e-8 through
+     Problem.solve (B1, B2 and B3 must launch, and each is held against
+     its plain version at this solve's shapes); the same operator through
+     auto_spmv must come out as block-DIA; a small Jacobi solve takes the
+     f64 Krylov path with the block-DIA apply.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -89,6 +103,56 @@ def _laplace(torch, n, clusters, device):
     return prob
 
 
+def _linelas(torch, dom, params, device):
+    """LinElas on `dom` with the x = 0 face clamped (flag 2) and a body
+    load in the last direction."""
+    from feddlib_tpu_torch.mesh.structured import flag_boxed_boundary
+    from feddlib_tpu_torch.problems.linelas import LinElas
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    dim = dom.dim
+    flag_boxed_boundary(dom.mesh, [0.0] * dim, [1.0] * dim, {"x0": 2})
+    prob = LinElas(dom, parameter_list=ParameterList("P", params),
+                   device=device)
+    prob.assemble()
+    prob.assemble_source(lambda x: [0.0] * (dim - 1) + [-0.1])
+    prob.add_bc(lambda x, t: 0.0, 2, 0)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+def _host_relres(np, A_sp, b, x):
+    """||b - A x|| / ||b|| in f64 on the host."""
+    b, x = b.double().cpu().numpy(), x.double().cpu().numpy()
+    return float(np.linalg.norm(b - A_sp @ x) / np.linalg.norm(b))
+
+
+def _block_sell_to_torch_csr(torch, bs):
+    """The block-SELL planes back to one torch CSR tensor on the planar
+    padded spaces the kernel works in (the B5 yardstick): row ci*n_rows + r,
+    column cj*nx2*128 + node column."""
+    lay, d = bs.layout, bs.d
+    nch, E = bs.vals.shape[0], lay.E
+    n_rows = nch * 8 * (128 // E)
+    nx = (bs.shape[0] // d + 127) // 128 * 128
+    p = lay.pidx.reshape(nch, -1).long()
+    ncol = (torch.gather(lay.bids.long(), 1, p >> 7) * 128
+            + (p & 127)).reshape(-1)
+    nrow = torch.arange(ncol.numel(), device=ncol.device) // E
+    rows, cols, vals = [], [], []
+    for ci in range(d):
+        for cj in range(d):
+            v = bs.vals[:, ci * d + cj].reshape(-1)
+            keep = v != 0
+            rows.append(ci * n_rows + nrow[keep])
+            cols.append(cj * nx + ncol[keep])
+            vals.append(v[keep])
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (d * n_rows, d * nx)).coalesce()
+    return coo.to_sparse_csr()
+
+
 def _sell_to_torch_csr(torch, sm):
     """The SELL planes back to a torch CSR tensor (the B2 yardstick)."""
     E = sm.E
@@ -118,6 +182,11 @@ def main(argv=None):
     ap.add_argument("--n-bench", type=int, default=40,
                     help="cells per side of the bench-chain cube")
     ap.add_argument("--bench-clusters", type=int, default=512)
+    ap.add_argument("--n-elas", type=int, default=32,
+                    help="cells per side of the P2 elasticity operator cube")
+    ap.add_argument("--n-solve", type=int, default=40,
+                    help="cells per side of the P1 elasticity solve cube")
+    ap.add_argument("--solve-clusters", type=int, default=128)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -217,10 +286,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     kernels = []
     g = torch.Generator(device=dev).manual_seed(0)
-    M = db.P * db.R
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bound,
-              lib_ms):
+              lib_ms):  # appends to `kernels`; phases 4 and 5 call it too
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -230,80 +298,91 @@ def main(argv=None):
               f"library_ms={lib_ms:.5f} bound_ms={bound[0]:.5f} "
               f"({bound[1]}) max_abs_err={err:.3e}", flush=True)
 
-    # B1: the cluster ghost fetch of the main path
-    idx = db.ghost_plan[0]
-    x = torch.randn(M, generator=g, device=dev)
-    y_k = pm.permute_gather(x, idx)
-    y_p = pm.permute_gather_plain(x, idx)
-    torch.cuda.synchronize()
-    _check(torch.equal(y_k, y_p), "B1 bit-exact")
-    x_ext = torch.cat([x, x.new_zeros(1)])
-    idx_lib = torch.where(idx < 0, M, idx).long()
-    _check(torch.equal(x_ext[idx_lib], y_p), "B1 yardstick")
-    print(f"B1 shapes: n_in={M} n_out={idx.numel()}")
-    entry("B1 permute_gather", "feddlib_tpu_torch/csrc/permute.cu",
-          "feddlib_tpu/la/permute.py:206", counts2["permute_gather"], 0.0,
-          _device_ms(torch, lambda: pm.permute_gather(x, idx)),
-          _device_ms(torch, lambda: pm.permute_gather_plain(x, idx)),
-          _bound(4 * M + 8 * idx.numel(), 0, PEAK_F32_S),
-          _device_ms(torch, lambda: x_ext[idx_lib]))
+    def hold_b1(where, idx, n_in, launches):
+        """B1 against its plain version and the x[idx] yardstick."""
+        x = torch.randn(n_in, generator=g, device=dev)
+        y_k = pm.permute_gather(x, idx)
+        y_p = pm.permute_gather_plain(x, idx)
+        torch.cuda.synchronize()
+        _check(torch.equal(y_k, y_p), f"B1 bit-exact{where}")
+        x_ext = torch.cat([x, x.new_zeros(1)])
+        idx_lib = torch.where(idx < 0, n_in, idx).long()
+        _check(torch.equal(x_ext[idx_lib], y_p), f"B1 yardstick{where}")
+        print(f"B1 shapes{where}: n_in={n_in} n_out={idx.numel()}")
+        entry("B1 permute_gather" + where,
+              "feddlib_tpu_torch/csrc/permute.cu",
+              "feddlib_tpu/la/permute.py:206", launches, 0.0,
+              _device_ms(torch, lambda: pm.permute_gather(x, idx)),
+              _device_ms(torch, lambda: pm.permute_gather_plain(x, idx)),
+              _bound(4 * n_in + 8 * idx.numel(), 0, PEAK_F32_S),
+              _device_ms(torch, lambda: x_ext[idx_lib]))
+        return x
 
-    # B2: the padded SELL operator A of the main path
-    Ac = split.Ac
-    xfull = torch.cat([x, pm.permute_gather(x, idx)])
-    nx2 = (Ac.shape[1] + 127) // 128
-    x2d = torch.zeros(nx2 * 128, device=dev)
-    x2d[: Ac.shape[1]] = xfull
-    x2d = x2d.reshape(nx2, 128)
-    y_k = sl.sell_spmv(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
-    y_p = sl.sell_spmv_plain(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
-    err = float((y_k - y_p).abs().max())
-    _check(err <= 1e-6 * float(y_p.abs().max()), f"B2 error {err}")
-    csr = _sell_to_torch_csr(torch, Ac)
-    xcol = x2d.reshape(-1)
-    y_lib = csr @ xcol
-    n_rows = Ac.shape[0]
-    _check(float((y_lib[:n_rows] - y_p[:n_rows]).abs().max())
-           <= 1e-5 * float(y_p.abs().max()), "B2 yardstick")
-    slots = Ac.vals.numel()
-    nnz_sell = int((Ac.vals != 0).sum())
-    print(f"B2 shapes: nchunks={Ac.vals.shape[0]} E={Ac.E} K={Ac.K} "
-          f"nx2={nx2} rows={n_rows} nnz={Ac.nnz} stored_nonzeros="
-          f"{nnz_sell} slots={slots} spill="
-          f"{0 if Ac.spill_rows is None else Ac.spill_rows.numel()}")
-    entry("B2 sell_spmv", "feddlib_tpu_torch/csrc/sell.cu",
-          "feddlib_tpu/la/sell.py:354", counts2["sell_spmv"], err,
-          _device_ms(torch, lambda: sl.sell_spmv(Ac.vals, Ac.pidx, Ac.bids,
-                                                  x2d, Ac.E)),
-          _device_ms(torch, lambda: sl.sell_spmv_plain(
-              Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)),
-          _bound(6 * slots + 4 * Ac.bids.numel() + 4 * x2d.numel()
-                 + 4 * (slots // Ac.E), 2 * nnz_sell, PEAK_F32_S),
-          _device_ms(torch, lambda: csr @ xcol))
-    del csr
+    def hold_b123(where, db, split, prec, counts):
+        """B1, B2 and B3 against their plain versions at the shapes of one
+        mixed-precision two-level solve (its cached operators)."""
+        # B1: the cluster ghost fetch
+        idx = db.ghost_plan[0]
+        x = hold_b1(where, idx, db.P * db.R, counts["permute_gather"])
 
-    # B3: the f32 level-1 inverse of the main path
-    inv = prec.level1.inv
-    P, R, W = inv.shape
-    xs = torch.randn(P, W, generator=g, device=dev)
-    y_k = dk.dense_block_mv(inv, xs)
-    y_p = dk.dense_block_mv_plain(inv, xs)
-    err = float((y_k - y_p).abs().max())
-    _check(err <= 1e-5 * float(y_p.abs().max()), f"B3 error {err}")
-    print(f"B3 shapes: P={P} R={R} W={W} bytes={inv.numel() * 4}")
-    entry("B3 dense_gemv_f32", "feddlib_tpu_torch/csrc/dense_gemv.cu",
-          "feddlib_tpu/la/pallas_kernels.py:26", counts2["dense_gemv_f32"],
-          err, _device_ms(torch, lambda: dk.dense_block_mv(inv, xs)),
-          _device_ms(torch, lambda: dk.dense_block_mv_plain(inv, xs),
-                     samples=20, calls=2),
-          _bound(4 * P * R * W + 4 * P * W + 4 * P * R, 2 * P * R * W,
-                 PEAK_F32_S),
-          _device_ms(torch, lambda: torch.bmm(inv, xs.unsqueeze(-1))))
+        # B2: the padded SELL operator A
+        Ac = split.Ac
+        xfull = torch.cat([x, pm.permute_gather(x, idx)])
+        nx2 = (Ac.shape[1] + 127) // 128
+        x2d = torch.zeros(nx2 * 128, device=dev)
+        x2d[: Ac.shape[1]] = xfull
+        x2d = x2d.reshape(nx2, 128)
+        y_k = sl.sell_spmv(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
+        y_p = sl.sell_spmv_plain(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
+        err = float((y_k - y_p).abs().max())
+        _check(err <= 1e-6 * float(y_p.abs().max()), f"B2 error {err}{where}")
+        csr = _sell_to_torch_csr(torch, Ac)
+        xcol = x2d.reshape(-1)
+        y_lib = csr @ xcol
+        n_rows = Ac.shape[0]
+        _check(float((y_lib[:n_rows] - y_p[:n_rows]).abs().max())
+               <= 1e-5 * float(y_p.abs().max()), f"B2 yardstick{where}")
+        slots = Ac.vals.numel()
+        nnz_sell = int((Ac.vals != 0).sum())
+        print(f"B2 shapes{where}: nchunks={Ac.vals.shape[0]} E={Ac.E} "
+              f"K={Ac.K} nx2={nx2} rows={n_rows} nnz={Ac.nnz} "
+              f"stored_nonzeros={nnz_sell} slots={slots} spill="
+              f"{0 if Ac.spill_rows is None else Ac.spill_rows.numel()}")
+        entry("B2 sell_spmv" + where, "feddlib_tpu_torch/csrc/sell.cu",
+              "feddlib_tpu/la/sell.py:354", counts["sell_spmv"], err,
+              _device_ms(torch, lambda: sl.sell_spmv(Ac.vals, Ac.pidx,
+                                                      Ac.bids, x2d, Ac.E)),
+              _device_ms(torch, lambda: sl.sell_spmv_plain(
+                  Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)),
+              _bound(6 * slots + 4 * Ac.bids.numel() + 4 * x2d.numel()
+                     + 4 * (slots // Ac.E), 2 * nnz_sell, PEAK_F32_S),
+              _device_ms(torch, lambda: csr @ xcol))
+        del csr
+
+        # B3: the f32 level-1 inverse
+        inv = prec.level1.inv
+        P, R, W = inv.shape
+        xs = torch.randn(P, W, generator=g, device=dev)
+        y_k = dk.dense_block_mv(inv, xs)
+        y_p = dk.dense_block_mv_plain(inv, xs)
+        err = float((y_k - y_p).abs().max())
+        _check(err <= 1e-5 * float(y_p.abs().max()), f"B3 error {err}{where}")
+        print(f"B3 shapes{where}: P={P} R={R} W={W} bytes={inv.numel() * 4}")
+        entry("B3 dense_gemv_f32" + where,
+              "feddlib_tpu_torch/csrc/dense_gemv.cu",
+              "feddlib_tpu/la/pallas_kernels.py:26", counts["dense_gemv_f32"],
+              err, _device_ms(torch, lambda: dk.dense_block_mv(inv, xs)),
+              _device_ms(torch, lambda: dk.dense_block_mv_plain(inv, xs),
+                         samples=20, calls=2),
+              _bound(4 * P * R * W + 4 * P * W + 4 * P * R, 2 * P * R * W,
+                     PEAK_F32_S),
+              _device_ms(torch, lambda: torch.bmm(inv, xs.unsqueeze(-1))))
+
+    hold_b123("", db, split, prec, counts2)
     _phase("3 kernels (main-path shapes)", t0)
 
     # free phase 2 before phase 4 builds its own operators
-    del prob, cache, db, split, prec, inv, xs, y_k, y_p, x, x_ext, idx
-    del idx_lib, xfull, x2d, xcol, y_lib, A_sp, u
+    del prob, cache, db, split, prec, A_sp, u
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -395,6 +474,221 @@ def main(argv=None):
           _device_ms(torch, lambda: torch.bmm(inv, xs_bf)))
     torch.cuda.synchronize()
     _phase("4 bench chain", t0)
+
+    del Kb, Kb_sp, bb, db, Ap, prec, inv, xs, xs_bf, y_k, y_p, res, xp, dom
+    del A_fn, A_ops, M_fn, M_ops, part
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 5: elasticity operator through auto_spmv ----------------------
+    t0 = time.perf_counter()
+    from feddlib_tpu_torch.la.dia import (BlockDiaMatrix, SplitDiaMatrix,
+                                          auto_spmv)
+    from feddlib_tpu_torch.la.sell import BlockSellMatrix
+
+    dom = Domain.structured(3, args.n_elas, device=dev).p2_domain()
+    t_mesh = time.perf_counter() - t0
+    prob = _linelas(torch, dom, {}, dev)
+    A = prob.bc_system().get_block(0, 0)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0 - t_mesh
+    t_fmt = time.perf_counter()
+    F = auto_spmv(A, dtype=torch.float32, dofs_per_node=3)
+    torch.cuda.synchronize()
+    t_fmt = time.perf_counter() - t_fmt
+    _check(isinstance(F, SplitDiaMatrix), f"format is {type(F).__name__}")
+    _check(isinstance(F.sell, BlockSellMatrix),
+           f"residue is {type(F.sell).__name__}")
+    bs, lay = F.sell, F.sell.layout
+    n_spill = 0 if bs.spill_rows is None else bs.spill_rows.numel()
+    print(f"elasticity operator: n_nodes={dom.n_nodes} n_dofs={A.shape[0]} "
+          f"nnz={A.nnz} format={type(F).__name__} dia_share="
+          f"{F.dia_share:.4f} node_offsets={len(F.dia.offsets)} residue="
+          f"{type(bs).__name__} E={lay.E} K={lay.K} chunks="
+          f"{bs.vals.shape[0]} residue_nnz={bs.nnz} spill={n_spill} "
+          f"bytes_per_apply={F.hbm_bytes_per_apply()}")
+    print(f"elasticity operator setup_s: mesh={t_mesh:.3f} "
+          f"assembly_and_bc={t_asm:.3f} auto_spmv={t_fmt:.3f} of which "
+          f"{ {k: round(v, 3) for k, v in F.timings.items()} }", flush=True)
+    A_sp = A.to_scipy()
+    fn5, ops5 = F.operator()
+    x5 = torch.randn(A.shape[0], generator=g, device=dev)
+
+    _cuda.reset_launch_counts()
+    y5 = fn5(ops5, x5)
+    torch.cuda.synchronize()
+    ref5 = A_sp @ x5.double().cpu().numpy()
+    err5 = float(np.abs(y5.double().cpu().numpy() - ref5).max()
+                 / np.abs(ref5).max())
+    _check(err5 <= 1e-5, f"elasticity apply vs host f64 product: {err5}")
+    counts_apply = dict(_cuda.launch_counts)
+    _check(counts_apply["block_sell_spmv"] == 1
+           and counts_apply["permute_gather"] == 2,
+           f"launches of one split apply: {counts_apply}")
+    F2 = F.with_data(2.0 * A.data)
+    y5b = F2.matvec(x5)
+    err5b = float((y5b - 2.0 * y5).abs().max() / y5.abs().max())
+    _check(err5b <= 1e-6, f"with_data(2*data) does not double: {err5b}")
+    del F2, y5b
+    # a fixed number of Jacobi-preconditioned GMRES iterations, f32, over
+    # the format's (fn, operands)
+    from feddlib_tpu_torch.solvers.linear import _jacobi_op
+
+    diag = A.diagonal()
+    dinv = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)).float()
+    b5 = prob.rhs[0].float()
+    _cuda.reset_launch_counts()
+    t_kr = time.perf_counter()
+    res5 = solve("gmres", fn5, ops5, b5, M_fn=_jacobi_op, M_ops=(dinv,),
+                 tol=0.0, maxiter=200, restart=50)
+    torch.cuda.synchronize()
+    t_kr = time.perf_counter() - t_kr
+    counts5 = dict(_cuda.launch_counts)
+    rel5 = _host_relres(np, A_sp, prob.rhs[0], res5.x)
+    _check(res5.iters >= 200, "GMRES iteration count")
+    _check(bool(torch.isfinite(res5.x).all()), "finite Krylov iterate")
+    _check(rel5 < 0.9, f"host f64 residual did not fall: {rel5}")
+    for k in ("block_sell_spmv", "permute_gather"):
+        _check(counts5[k] > 0, f"elasticity operator launched no {k}")
+    ap_ms = _device_ms(torch, lambda: fn5(ops5, x5), samples=10, calls=10)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(50):
+        y5 = fn5(ops5, x5)
+    torch.cuda.synchronize()
+    ap_wall_ms = (time.perf_counter() - tw) / 50 * 1e3
+    print(f"elasticity operator: apply_vs_host_f64={err5:.3e} "
+          f"with_data_err={err5b:.3e} apply_ms={ap_ms:.5f} (device) "
+          f"apply_wall_ms={ap_wall_ms:.5f} (host clock, 50 applies)")
+    print(f"elasticity operator: gmres_iters={res5.iters} "
+          f"host_f64_relres={rel5:.3e} krylov_s={t_kr:.3f} launches of "
+          f"one apply={counts_apply} launches of the Krylov solve="
+          f"{counts5} (per iteration: block_sell_spmv "
+          f"{counts5['block_sell_spmv'] / res5.iters:.3f}, permute_gather "
+          f"{counts5['permute_gather'] / res5.iters:.3f})", flush=True)
+
+    # B1 at the split's entry and exit gathers
+    hold_b1(" (elasticity operator, entry gather)", F.gin.idx, F.gin.n_in,
+            counts5["permute_gather"] // 2)
+    hold_b1(" (elasticity operator, exit gather)", F.gout.idx, F.gout.n_in,
+            counts5["permute_gather"] - counts5["permute_gather"] // 2)
+
+    # B5 against its plain version at this operator's shapes
+    d5, E5 = bs.d, lay.E
+    nx2 = (dom.n_nodes + 127) // 128
+    x2d = torch.randn(d5 * nx2, 128, generator=g, device=dev)
+    y_k = sl.block_sell_spmv(bs.vals, lay.pidx, lay.bids, x2d, E5, d5)
+    y_p = sl.block_sell_spmv_plain(bs.vals, lay.pidx, lay.bids, x2d, E5, d5)
+    torch.cuda.synchronize()
+    err = float((y_k - y_p).abs().max())
+    _check(err <= 1e-5 * float(y_p.abs().max()), f"B5 error {err}")
+    csr = _block_sell_to_torch_csr(torch, bs)
+    xcol = x2d.reshape(-1)
+    y_lib = csr @ xcol
+    _check(float((y_lib - y_p.reshape(-1)).abs().max())
+           <= 1e-5 * float(y_p.abs().max()), "B5 yardstick")
+    slots = lay.pidx.numel()
+    stored = int((bs.vals != 0).sum())
+    print(f"B5 shapes: d={d5} nchunks={bs.vals.shape[0]} E={E5} K={lay.K} "
+          f"nx2={nx2} node_rows={y_k.shape[1]} slots={slots} "
+          f"stored_nonzeros={stored} plane_bytes={bs.vals.numel() * 4}")
+    # bound_ms counts the planes as stored (padding included); the second
+    # bound counts only the nonzero values, which is what the same product
+    # needs in a format without padding
+    b_nnz = _bound(4 * stored + 2 * slots + 4 * lay.bids.numel()
+                   + 4 * x2d.numel() + 4 * y_k.numel(), 2 * stored,
+                   PEAK_F32_S)
+    entry("B5 block_sell_spmv", "feddlib_tpu_torch/csrc/block_sell.cu",
+          "feddlib_tpu/la/sell.py:788", counts5["block_sell_spmv"], err,
+          _device_ms(torch, lambda: sl.block_sell_spmv(
+              bs.vals, lay.pidx, lay.bids, x2d, E5, d5)),
+          _device_ms(torch, lambda: sl.block_sell_spmv_plain(
+              bs.vals, lay.pidx, lay.bids, x2d, E5, d5), samples=10,
+              calls=4),
+          _bound(4 * bs.vals.numel() + 2 * slots + 4 * lay.bids.numel()
+                 + 4 * x2d.numel() + 4 * y_k.numel(), 2 * stored,
+                 PEAK_F32_S),
+          _device_ms(torch, lambda: csr @ xcol))
+    print(f"  B5 bound from the stored nonzeros alone: {b_nnz[0]:.5f} ms "
+          f"({b_nnz[1]}); kernel at {b_nnz[0] / kernels[-1]['ms']:.3f} of "
+          f"it, at {kernels[-1]['bound_ms'] / kernels[-1]['ms']:.3f} of the "
+          f"plane bound")
+    torch.cuda.synchronize()
+    _phase("5 elasticity operator", t0)
+
+    del prob, A, A_sp, F, bs, lay, fn5, ops5, x5, y5, res5, b5, dinv, diag
+    del csr, xcol, y_lib, y_k, y_p, x2d, dom, ref5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 6: elasticity solve -------------------------------------------
+    t0 = time.perf_counter()
+    prob = _linelas(torch, Domain.structured(3, args.n_solve, device=dev),
+                    {"Use Mixed Precision": True, "TwoLevel": True,
+                     "Null Space Type": "Elasticity",
+                     "Clusters": args.solve_clusters,
+                     "Convergence Tolerance": 1e-8}, dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter()
+    _cuda.reset_launch_counts()
+    iters = prob.solve()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t_setup
+    counts6 = dict(_cuda.launch_counts)
+    u = prob.solution[0]
+    A = prob.bc_system().get_block(0, 0)
+    A_sp = A.to_scipy()
+    _check(u.dtype == torch.float64 and u.shape[0] == A.shape[0],
+           "elasticity solution dtype/shape")
+    _check(bool(torch.isfinite(u).all()), "finite elasticity solution")
+    rel6 = _host_relres(np, A_sp, prob.rhs[0], u)
+    cache = prob._mixed_cache
+    db, prec = cache["db32"], cache["prec"]
+    print(f"elasticity solve: n_dofs={A.shape[0]} nnz={A.nnz} P={db.P} "
+          f"R={db.R} G={db.G} W={db.R + db.G} E={cache['sell'].Ac.E} "
+          f"K={cache['sell'].Ac.K} coarse_dim={prec.n_coarse}")
+    print(f"elasticity solve: ir_passes={prob.last_passes} inner_iters="
+          f"{iters} relres={prob.last_relres:.3e} host_f64_relres="
+          f"{rel6:.3e} setup_s={t_setup - t0:.3f} solve_s={t_solve:.3f} "
+          f"prec_timings={ {k: round(v, 3) for k, v in prec.timings.items()} }")
+    print(f"elasticity solve launches: {counts6} (per inner iteration: "
+          f"{ {k: round(v / max(iters, 1), 2) for k, v in counts6.items()} })",
+          flush=True)
+    _check(rel6 <= 1e-8, f"elasticity host f64 residual {rel6} > 1e-8")
+    _check(float(u.reshape(-1, 3)[:, 2].min()) < 0, "body sags under load")
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        _check(counts6[k] > 0, f"elasticity solve launched no {k}")
+    # B1-B3 against their plain versions at this solve's shapes
+    hold_b123(" (elasticity solve)", db, cache["sell"], prec, counts6)
+    # the structured vector operator takes the block-DIA format
+    Fb = auto_spmv(A, dtype=torch.float32, dofs_per_node=3)
+    _check(isinstance(Fb, BlockDiaMatrix), f"P1 format {type(Fb).__name__}")
+    x6 = torch.randn(A.shape[0], generator=g, device=dev)
+    ref6 = A_sp @ x6.double().cpu().numpy()
+    err6 = float(np.abs(Fb.matvec(x6).double().cpu().numpy() - ref6).max()
+                 / np.abs(ref6).max())
+    bd_ms = _device_ms(torch, lambda: Fb.matvec(x6), samples=10, calls=10)
+    print(f"elasticity solve: P1 operator format={type(Fb).__name__} "
+          f"node_offsets={len(Fb.offsets)} apply_vs_host_f64={err6:.3e} "
+          f"apply_ms={bd_ms:.5f} (device)")
+    _check(err6 <= 1e-5, f"block-DIA apply vs host f64 product: {err6}")
+    # the f64 Krylov path with Jacobi: block-DIA A-apply on the card
+    small = {}
+    for d in ("cuda", "cpu"):
+        p = _linelas(torch, Domain.structured(3, 10, device=d),
+                     {"Preconditioner Type": "Jacobi"}, d)
+        small[d] = (p.solve(), p.solution[0].cpu().numpy(), p.last_relres,
+                    getattr(p, "_autofmt", None))
+    dsmall = float(np.abs(small["cuda"][1] - small["cpu"][1]).max())
+    print(f"small Jacobi solve cuda vs cpu: iters {small['cuda'][0]} vs "
+          f"{small['cpu'][0]}, max|du|={dsmall:.3e}")
+    _check(isinstance(small["cuda"][3]["fmt"], BlockDiaMatrix)
+           and small["cpu"][3] is None, "f64 path format dispatch")
+    _check(small["cuda"][2] <= 1e-8 and small["cpu"][2] <= 1e-8,
+           "small Jacobi solves reach 1e-8")
+    _check(abs(small["cuda"][0] - small["cpu"][0]) <= 2
+           and dsmall < 1e-7, "small Jacobi solve cuda vs cpu")
+    _phase("6 elasticity solve", t0)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

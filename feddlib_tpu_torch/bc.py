@@ -4,7 +4,8 @@ Counterpart of feddlib_tpu/bc.py (the parts Problem uses).  Application
 semantics:
 - Dirichlet: zero the matrix row, unit diagonal, write g(x, t) into the rhs;
 - Dirichlet_X/_Y/_Z/_X_Y/...: per-component variants;
-- Neumann: registered only (its surface load is not ported yet).
+- Neumann: registered only; its load is assembled by
+  fe/ops.assemble_surface_rhs.
 
 The host precomputes, per (block, matrix pattern), the Dirichlet dof mask
 and the nnz slots to zero and to set to one; application is then a device
@@ -12,7 +13,9 @@ index write.
 
 BC function contract: func(x, t) gets the flagged nodes' coordinates
 component-first, x [dim, n_nodes] (so x[0] is the first coordinate), and
-returns a scalar, a tensor of shape [n_nodes], or [dofs, n_nodes].
+returns a scalar, a tensor of shape [n_nodes], [dofs, n_nodes], or — for a
+vector field with the same value at every node — a sequence or tensor of
+[dofs] values.
 """
 
 from __future__ import annotations
@@ -50,19 +53,28 @@ class _BC:
     components: Optional[List[int]]
 
 
-def _eval_bc(func, coords: torch.Tensor, t: float) -> torch.Tensor:
-    """func at nodes coords [n, dim] → [n, k] f64."""
+def _eval_bc(func, coords: torch.Tensor, t: float,
+             dofs: int = 1) -> torch.Tensor:
+    """func at nodes coords [n, dim] → [n, k] f64 (k = 1 or dofs).  A 1-D
+    result of length n is one value per node; otherwise a 1-D result of
+    length dofs is one constant per component."""
     n = coords.shape[0]
-    g = torch.as_tensor(func(coords.T, t), dtype=torch.float64,
-                        device=coords.device)
+    g = func(coords.T, t)
+    if isinstance(g, (list, tuple)):
+        g = torch.stack([torch.as_tensor(v, dtype=torch.float64,
+                                         device=coords.device) for v in g])
+    g = torch.as_tensor(g, dtype=torch.float64, device=coords.device)
     if g.dim() == 0:
         return g.expand(n, 1)
     if g.dim() == 1 and g.shape[0] == n:
         return g[:, None]
+    if g.dim() == 1 and g.shape[0] == dofs:
+        return g[None, :].expand(n, dofs)
     if g.dim() == 2 and g.shape[1] == n:
         return g.T
     raise ValueError(f"BC function returned shape {tuple(g.shape)} for "
-                     f"{n} nodes (expected (), ({n},) or (dofs, {n}))")
+                     f"{n} nodes and {dofs} dofs per node (expected (), "
+                     f"({n},), ({dofs},) or (dofs, {n}))")
 
 
 class BCBuilder:
@@ -110,7 +122,7 @@ class BCBuilder:
                 continue
             coords = torch.as_tensor(bc.domain.mesh.points[nodes],
                                      dtype=torch.float64, device=dev)
-            g = _eval_bc(bc.func, coords, t)
+            g = _eval_bc(bc.func, coords, t, bc.dofs_per_node)
             for c in bc.components:
                 gc = g[:, c] if g.shape[1] > 1 else g[:, 0]
                 idx = torch.as_tensor(nodes * bc.dofs_per_node + c,

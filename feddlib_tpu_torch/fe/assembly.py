@@ -1,10 +1,15 @@
-"""Batched finite-element assembly for P1/P2 simplex Laplace and the rhs.
+"""Batched finite-element assembly on P1/P2 simplices: Laplace, mass, linear
+elasticity, volume and surface loads.
 
-Counterpart of the parts of feddlib_tpu/fe/assembly.py that scalar Laplace
-needs: every step is batched over all elements at once — element geometry
+Counterpart of the parts of feddlib_tpu/fe/assembly.py that the Laplace and
+linear-elasticity problems need: every step is batched over all elements at once — element geometry
 (B, B⁻¹, det B) in closed form, element matrices by einsum over
 [elements, quadrature points, basis, dims], and the global scatter through
 the COO→CSR slot plan of `SparsityPattern`.  Everything is float64.
+
+Source and load functions get the quadrature points component-first,
+x [dim, E, nq] (so x[0] is the first coordinate), where the JAX package
+maps a per-point function over the points.
 """
 
 from __future__ import annotations
@@ -110,12 +115,81 @@ def elem_laplace(vert_coords, dim, fe_type):
     return K * adet[:, None, None]
 
 
+def elem_mass(vert_coords, dim, fe_type):
+    """Scalar mass ∫ φa φb."""
+    _, qw, phi, _ = _tables(dim, fe_type,
+                            ref.determine_degree(dim, fe_type, "phi"),
+                            vert_coords.device)
+    _, adet = element_transforms(vert_coords, dim)
+    M = torch.einsum("q,qa,qb->ab", qw, phi, phi)
+    return M[None] * adet[:, None, None]
+
+
+def elem_stress_sym(vert_coords, dim, fe_type, viscosity=1.0):
+    """Symmetric-gradient (stress) form 2μ ∫ ε(u):ε(v) as a vector-valued
+    element matrix [E, nb, nb, dim, dim]: entry (a,b,i,j) couples test
+    component i with trial component j.  For u = φb e_j, v = φa e_i:
+    2 ε(u):ε(v) = ∂i φb ∂j φa + δij ∇φa·∇φb."""
+    _, qw, _, dphi = _tables(dim, fe_type,
+                             ref.determine_degree(dim, fe_type, "grad"),
+                             vert_coords.device)
+    Binv, adet = element_transforms(vert_coords, dim)
+    g = _phys_grads(Binv, dphi)  # [E,nq,nb,dim]
+    gg = torch.einsum("q,eqak,eqbk->eab", qw, g, g)
+    cross = torch.einsum("q,eqaj,eqbi->eabij", qw, g, g)  # ∂j φa ∂i φb
+    eye = torch.eye(dim, dtype=f64, device=vert_coords.device)
+    S = viscosity * (cross + torch.einsum("eab,ij->eabij", gg, eye))
+    return S * adet[:, None, None, None, None]
+
+
+def elem_laplace_vec(vert_coords, dim, fe_type, viscosity=1.0):
+    """Vector Laplace μ ∫ ∇u:∇v → diagonal dim-blocks of the scalar
+    stiffness, [E, nb, nb, dim, dim]."""
+    K = elem_laplace(vert_coords, dim, fe_type) * viscosity
+    eye = torch.eye(dim, dtype=f64, device=vert_coords.device)
+    return torch.einsum("eab,ij->eabij", K, eye)
+
+
+def elem_lin_elasticity(vert_coords, dim, fe_type, mu=1.0, lam=1.0):
+    """Linear elasticity 2μ ε(u):ε(v) + λ div u div v →
+    [E, nb, nb, dim, dim]."""
+    S = elem_stress_sym(vert_coords, dim, fe_type, viscosity=mu)
+    _, qw, _, dphi = _tables(dim, fe_type,
+                             ref.determine_degree(dim, fe_type, "grad"),
+                             vert_coords.device)
+    Binv, adet = element_transforms(vert_coords, dim)
+    g = _phys_grads(Binv, dphi)
+    # div term: ∫ (∂i φa)(∂j φb) for (test comp i, trial comp j)
+    div = torch.einsum("q,eqai,eqbj->eabij", qw, g, g)
+    return S + lam * div * adet[:, None, None, None, None]
+
+
+def _eval_source(f: Callable, xq: torch.Tensor, n_comp: int) -> torch.Tensor:
+    """f at the points xq [E, nq, dim] → [E, nq] (n_comp == 1) or
+    [E, nq, n_comp].  f gets x component-first [dim, E, nq].  A scalar
+    field returns a scalar or something broadcastable to [E, nq]; a vector
+    field returns one value per component — a sequence or a tensor whose
+    first axis has n_comp entries, each a scalar or broadcastable to
+    [E, nq]."""
+    fq = f(xq.permute(2, 0, 1))
+    shape = xq.shape[:2]
+
+    def at_points(v):
+        return torch.broadcast_to(
+            torch.as_tensor(v, dtype=f64, device=xq.device), shape)
+
+    if n_comp == 1:
+        return at_points(fq)
+    if len(fq) != n_comp:
+        raise ValueError(f"source returned {len(fq)} components for a "
+                         f"field of {n_comp}")
+    return torch.stack([at_points(v) for v in fq], dim=-1)
+
+
 def elem_rhs(vert_coords, dim, fe_type, f: Callable,
-             degree: Optional[int] = None):
-    """Volume source ∫ f φa for a scalar field.  `f(x)` gets the physical
-    quadrature points component-first, x [dim, E, nq] (so x[0] is the
-    first coordinate), and returns a scalar or a tensor broadcastable to
-    [E, nq].  Returns [E, nb]."""
+             degree: Optional[int] = None, n_comp: int = 1):
+    """Volume source ∫ f φa (see _eval_source for f's contract).  Returns
+    [E, nb] or, for n_comp > 1, [E, nb, n_comp]."""
     if degree is None:
         degree = {"P1": 2, "P2": 4}[fe_type]
     dev = vert_coords.device
@@ -124,9 +198,53 @@ def elem_rhs(vert_coords, dim, fe_type, f: Callable,
     p0 = vert_coords[:, 0, :]
     B = (vert_coords[:, 1:, :] - vert_coords[:, :1, :]).transpose(1, 2)
     xq = p0[:, None, :] + torch.einsum("edk,qk->eqd", B, qp)  # [E,nq,dim]
-    fq = torch.as_tensor(f(xq.permute(2, 0, 1)), dtype=f64, device=dev)
-    fq = torch.broadcast_to(fq, xq.shape[:2])
-    return torch.einsum("q,eq,qa->ea", qw, fq, phi_v) * adet[:, None]
+    fq = _eval_source(f, xq, n_comp)
+    if fq.dim() == 2:
+        return torch.einsum("q,eq,qa->ea", qw, fq, phi_v) * adet[:, None]
+    return (torch.einsum("q,eqc,qa->eac", qw, fq, phi_v)
+            * adet[:, None, None])
+
+
+def elem_surface_rhs(surf_coords, dim, fe_type, g: Callable,
+                     degree: int = 3, n_comp: int = 1):
+    """Neumann surface load ∫_Γ g φa over boundary entities.
+    surf_coords [S, n_surf_nodes, dim] (vertices first); the surface
+    reference element is the (dim−1)-simplex.  Returns [S, nb_surf]
+    (n_comp == 1) or [S, nb_surf, n_comp]."""
+    sdim = dim - 1
+    dev = surf_coords.device
+    qp, qw = ref.quadrature(sdim, degree) if sdim == 2 else _line_quad(degree)
+    phi_v = (ref.eval_phi(sdim, fe_type, qp) if sdim == 2
+             else _line_phi(fe_type, qp))
+    qp, qw, phi_v = (torch.as_tensor(np.asarray(a), dtype=f64, device=dev)
+                     for a in (qp, qw, phi_v))
+    p0 = surf_coords[:, 0, :]
+    T = (surf_coords[:, 1:sdim + 1, :] - surf_coords[:, :1, :]).transpose(1, 2)
+    # surface Jacobian norm: sqrt(det(TᵀT))
+    G = torch.einsum("edk,edl->ekl", T, T)
+    detG = G[..., 0, 0] if sdim == 1 else small_det(G)
+    jac = torch.sqrt(detG.abs())
+    xq = p0[:, None, :] + torch.einsum("edk,qk->eqd", T, qp)
+    gq = _eval_source(g, xq, n_comp)
+    if gq.dim() == 2:
+        return torch.einsum("q,eq,qa->ea", qw, gq, phi_v) * jac[:, None]
+    return torch.einsum("q,eqc,qa->eac", qw, gq, phi_v) * jac[:, None, None]
+
+
+def _line_quad(degree):
+    n = degree // 2 + 1
+    x, w = np.polynomial.legendre.leggauss(n)
+    return (0.5 * (x[:, None] + 1)), 0.5 * w
+
+
+def _line_phi(fe_type, qp):
+    x = np.atleast_2d(qp)[:, 0]
+    if fe_type == "P1":
+        return np.stack([1 - x, x], axis=1)
+    if fe_type == "P2":
+        return np.stack([(1 - x) * (1 - 2 * x), x * (2 * x - 1),
+                         4 * x * (1 - x)], axis=1)
+    raise ValueError(fe_type)
 
 
 # ---------------------------------------------------------------------------
@@ -152,11 +270,22 @@ def scatter_pattern(row_dofs: np.ndarray, col_dofs: np.ndarray,
     return SparsityPattern.from_coo(rows, cols, n_rows, n_cols)
 
 
+def vectorize_elem_mat(elem_mat_blocks: torch.Tensor) -> torch.Tensor:
+    """[E, nb_r, nb_c, dim_r, dim_c] → [E, nb_r*dim_r, nb_c*dim_c] with
+    NodeWise interleaving (node-major, component-minor)."""
+    E, nr, nc, dr, dc = elem_mat_blocks.shape
+    return elem_mat_blocks.permute(0, 1, 3, 2, 4).reshape(E, nr * dr, nc * dc)
+
+
 def assemble_vector(dof_ids: np.ndarray, elem_vecs: torch.Tensor,
                     n_dofs: int) -> torch.Tensor:
-    """Scatter-add element vectors [E, nloc] into a global vector."""
-    idx = torch.as_tensor(np.asarray(dof_ids).reshape(-1),
-                          device=elem_vecs.device)
+    """Scatter-add element vectors [E, nloc] (node ids) or [E, nloc, comp]
+    (NodeWise dofs node*comp + c) into a global vector."""
+    ids = np.asarray(dof_ids)
+    if elem_vecs.dim() == 3:
+        c = elem_vecs.shape[2]
+        ids = ids[:, :, None] * c + np.arange(c)[None, None, :]
+    idx = torch.as_tensor(ids.reshape(-1), device=elem_vecs.device)
     return torch.zeros(n_dofs, dtype=elem_vecs.dtype,
                        device=elem_vecs.device).index_add_(
         0, idx, elem_vecs.reshape(-1))

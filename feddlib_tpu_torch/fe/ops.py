@@ -1,8 +1,9 @@
 """Global assembly operations: Domain → CsrMatrix / vectors.
 
-Counterpart of feddlib_tpu/fe/ops.py for scalar simplex Laplace and the
-volume rhs, through the chunked element path (ops.py:48-91 of the JAX
-package) on every device.  The JAX package switches to its element-last
+Counterpart of feddlib_tpu/fe/ops.py for simplex Laplace (scalar and
+vector), mass, linear elasticity and the volume and surface loads, through
+the chunked element path (ops.py:48-91 of the JAX package) on every
+device.  The JAX package switches to its element-last
 fast assembly (fe/fast_assembly.py) on accelerators; that module is not
 ported yet (ROADMAP.md, slice 2).
 """
@@ -22,10 +23,15 @@ from feddlib_tpu_torch.la.csr import CsrMatrix
 _CHUNK = 32768
 
 
-def _assemble_chunked(domain: Domain, pattern, kernel) -> CsrMatrix:
+def _assemble_chunked(domain: Domain, pattern, kernel,
+                      post=None) -> CsrMatrix:
+    """kernel(vert_coords chunk) → element matrices; `post` (e.g.
+    vectorize_elem_mat) runs on each chunk before it is flattened."""
     vc = domain.vert_coords()
-    vals = [kernel(vc[s:s + _CHUNK]).reshape(-1)
-            for s in range(0, vc.shape[0], _CHUNK)]
+    vals = []
+    for s in range(0, vc.shape[0], _CHUNK):
+        out = kernel(vc[s:s + _CHUNK])
+        vals.append((post(out) if post is not None else out).reshape(-1))
     m = CsrMatrix(pattern, device=domain.device)
     m.assemble(torch.cat(vals))
     return m
@@ -54,16 +60,77 @@ def assemble_laplace(domain: Domain) -> CsrMatrix:
         lambda vc: asm.elem_laplace(vc, domain.dim, domain.fe_type))
 
 
+def assemble_laplace_vec(domain: Domain, viscosity: float = 1.0) -> CsrMatrix:
+    """Vector Laplace (FE::assemblyLaplaceVecField)."""
+    _require_simplex(domain)
+    return _assemble_chunked(
+        domain, _square_pattern(domain, domain.dim),
+        lambda vc: asm.elem_laplace_vec(vc, domain.dim, domain.fe_type,
+                                        viscosity),
+        post=asm.vectorize_elem_mat)
+
+
+def assemble_mass(domain: Domain, dofs_per_node: int = 1) -> CsrMatrix:
+    """Mass matrix, scalar or vector (FE::assemblyMass)."""
+    _require_simplex(domain)
+    eye = torch.eye(dofs_per_node, dtype=torch.float64, device=domain.device)
+
+    def post(M):
+        if dofs_per_node > 1:
+            return asm.vectorize_elem_mat(
+                torch.einsum("eab,ij->eabij", M, eye))
+        return M
+
+    return _assemble_chunked(
+        domain, _square_pattern(domain, dofs_per_node),
+        lambda vc: asm.elem_mass(vc, domain.dim, domain.fe_type), post=post)
+
+
+def assemble_lin_elasticity(domain: Domain, mu: float, lam: float) -> CsrMatrix:
+    """2μ ε(u):ε(v) + λ div u div v (FE::assemblyLinElasXDim); λ, μ from
+    (E, ν) through lame_parameters."""
+    _require_simplex(domain)
+    return _assemble_chunked(
+        domain, _square_pattern(domain, domain.dim),
+        lambda vc: asm.elem_lin_elasticity(vc, domain.dim, domain.fe_type,
+                                           mu, lam),
+        post=asm.vectorize_elem_mat)
+
+
+def lame_parameters(E: float, nu: float):
+    mu = E / (2.0 * (1.0 + nu))
+    lam = nu * E / ((1.0 + nu) * (1.0 - 2.0 * nu))
+    return mu, lam
+
+
 def assemble_rhs(domain: Domain, f: Callable, dofs_per_node: int = 1,
                  degree: Optional[int] = None) -> torch.Tensor:
-    """Volume source term (FE::assemblyRHS) of a scalar field.  f(x) takes
-    the quadrature points component-first (x[0] is the first coordinate)
-    and returns a scalar or a tensor broadcastable to the points (see
-    assembly.elem_rhs)."""
+    """Volume source term (FE::assemblyRHS).  f(x) takes the quadrature
+    points component-first (x[0] is the first coordinate) and returns a
+    scalar or a tensor broadcastable to the points (dofs_per_node == 1),
+    or one such value per component (see assembly._eval_source)."""
     _require_simplex(domain)
-    if dofs_per_node != 1:
-        raise NotImplementedError(
-            "vector sources are not ported yet (ROADMAP.md A8)")
     vec = asm.elem_rhs(domain.vert_coords(), domain.dim, domain.fe_type,
-                       f, degree=degree)
-    return asm.assemble_vector(domain.elem_nodes(), vec, domain.n_dofs())
+                       f, degree=degree, n_comp=dofs_per_node)
+    return asm.assemble_vector(domain.elem_nodes(), vec,
+                               domain.n_dofs(dofs_per_node))
+
+
+def assemble_surface_rhs(domain: Domain, g: Callable, flag: int,
+                         dofs_per_node: int = 1,
+                         degree: int = 3) -> torch.Tensor:
+    """Neumann boundary load over the surfaces with the given flag
+    (FE::assemblySurfaceIntegral); g as f in assemble_rhs."""
+    mesh = domain.mesh
+    if mesh.surfaces is None:
+        raise ValueError("mesh has no surface entities")
+    surf = mesh.surfaces[mesh.surface_flags == flag]
+    n = domain.n_dofs(dofs_per_node)
+    if len(surf) == 0:
+        return torch.zeros(n, dtype=torch.float64, device=domain.device)
+    nverts = domain.dim  # vertices of the surface simplex
+    coords = torch.as_tensor(mesh.points[surf[:, :nverts]],
+                             dtype=torch.float64, device=domain.device)
+    vec = asm.elem_surface_rhs(coords, domain.dim, domain.fe_type, g,
+                               degree=degree, n_comp=dofs_per_node)
+    return asm.assemble_vector(surf, vec, n)

@@ -27,19 +27,23 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("permute.cu", "sell.cu", "dense_gemv.cu")
+SOURCES = ("permute.cu", "sell.cu", "dense_gemv.cu", "block_sell.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset_launch_counts()
 launch_counts = {"permute_gather": 0, "sell_spmv": 0,
-                 "dense_gemv_f32": 0, "dense_gemv_bf16": 0}
+                 "dense_gemv_f32": 0, "dense_gemv_bf16": 0,
+                 "block_sell_spmv": 0}
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "fedd_permute_gather_f32": [_P, _P, _P, ctypes.c_longlong, _P],
     "fedd_sell_spmv_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                            ctypes.c_int, ctypes.c_int, _P],
+    "fedd_block_sell_spmv_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, _P],
     "fedd_dense_gemv_f32": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, _P],
     "fedd_dense_gemv_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int,

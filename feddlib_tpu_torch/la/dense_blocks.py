@@ -24,6 +24,9 @@ lanes zero).  `to_padded` / `from_padded` convert.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import logging
 import os
 from typing import Optional
 
@@ -380,9 +383,61 @@ def _blocks_symmetric(A: CsrMatrix, tol: float = 1e-12) -> bool:
     return bool(d.max() <= tol * scale)
 
 
+def _blas_thread_controls():
+    """(get, set) thread-count functions of every OpenBLAS library loaded
+    in this process, found through /proc/self/maps (numpy and scipy each
+    bring their own copy); empty where that file does not exist."""
+    try:
+        with open("/proc/self/maps") as f:
+            paths = {line.split()[-1] for line in f if "openblas" in line}
+    except OSError:
+        return []
+    names = [(f"{pre}openblas_get_num_threads{suf}",
+              f"{pre}openblas_set_num_threads{suf}")
+             for pre in ("", "scipy_") for suf in ("", "64_", "_64")]
+    out = []
+    for path in sorted(paths):
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            continue
+        for get_name, set_name in names:
+            get, set_ = getattr(lib, get_name, None), getattr(lib, set_name,
+                                                              None)
+            if get is not None and set_ is not None:
+                get.restype, get.argtypes = ctypes.c_int, []
+                set_.restype, set_.argtypes = None, [ctypes.c_int]
+                out.append((get, set_))
+                break
+    return out
+
+
+@contextlib.contextmanager
+def _blas_single_threaded():
+    """Run the body with every loaded OpenBLAS at one thread, then restore.  The
+    setup pools below call LAPACK/SuperLU from several Python threads at
+    once; a BLAS that spawns its own thread team under each of them
+    oversubscribes the cores and runs several times slower.  Only OpenBLAS
+    is pinned: with another BLAS (MKL) the body runs unpinned, and a log
+    line says so."""
+    saved = [(set_, get()) for get, set_ in _blas_thread_controls()]
+    if not saved:
+        logging.getLogger(__name__).info(
+            "no OpenBLAS thread control found: the setup pool runs with "
+            "the BLAS thread count unchanged")
+    try:
+        for set_, _ in saved:
+            set_(1)
+        yield
+    finally:
+        for set_, n in saved:
+            set_(n)
+
+
 def _parallel_map(fn, items, max_workers: Optional[int] = None):
-    """Thread-pooled map for setup-phase factorization loops (a copy of
-    feddlib_tpu/la/sparse_lu.py:_parallel_map)."""
+    """Thread-pooled map for setup-phase factorization loops (after
+    feddlib_tpu/la/sparse_lu.py:_parallel_map), with the BLAS libraries
+    held at one thread while the pool runs."""
     from concurrent.futures import ThreadPoolExecutor
 
     items = list(items)
@@ -392,7 +447,7 @@ def _parallel_map(fn, items, max_workers: Optional[int] = None):
                            os.cpu_count() or 1, len(items))
     if w <= 1:
         return [fn(x) for x in items]
-    with ThreadPoolExecutor(max_workers=w) as ex:
+    with _blas_single_threaded(), ThreadPoolExecutor(max_workers=w) as ex:
         return list(ex.map(fn, items))
 
 

@@ -1,7 +1,8 @@
-"""Windowed sliced-ELL SpMV — kernel B2.
+"""Windowed sliced-ELL SpMV — kernels B2 (scalar) and B5 (d x d blocks).
 
 Counterpart of feddlib_tpu/la/sell.py (`SellMatrix`, `sell_padded_from`,
-`PaddedSplitSpMV`).  The host builds the same layout as the JAX package:
+`PaddedSplitSpMV`, `BlockSellMatrix`).  The host builds the same layout as
+the JAX package:
 
   - rows are grouped in chunks of `rows_per_chunk = 8 * (128 // E)`
     (E = padded ELL slots per row, a power of two <= 128); row r owns the
@@ -12,9 +13,15 @@ Counterpart of feddlib_tpu/la/sell.py (`SellMatrix`, `sell_padded_from`,
   - entries of chunks that touch more than K blocks (or rows longer than E)
     spill to a COO tail, applied with `index_add_`.
 
-`sell_spmv` launches the CUDA kernel (csrc/sell.cu) for a CUDA tensor and
-runs the plain version for a CPU tensor.  The JAX package splits launches
-above 2048 chunks for the TPU's scalar memory; the card needs no split.
+`BlockSellMatrix` builds that slot layout once on the NODE pattern of a
+vector-field operator (NodeWise dofs, dof = node*d + c); each slot then
+carries the d x d block of values as d*d planes, and vectors are PLANAR
+[d, nn] (component-major).
+
+`sell_spmv` / `block_sell_spmv` launch the CUDA kernels (csrc/sell.cu,
+csrc/block_sell.cu) for a CUDA tensor and run the plain versions for a CPU
+tensor.  The JAX package splits (B2) or abandons (B5) its kernel launch
+above 2048 chunks for the TPU's scalar memory; the card needs neither.
 """
 
 from __future__ import annotations
@@ -72,12 +79,64 @@ def sell_spmv(vals, pidx, bids, x2d, E):
     return y
 
 
+def block_sell_spmv_plain(vals, pidx, bids, x2d, E, d):
+    """Plain PyTorch version of the block-SELL SpMV on planar vectors:
+    y[ci, r] = sum over the E slots of node row r and over cj of
+    vals[c, ci*d + cj, slot] * x[cj, col(slot)], with col(slot) =
+    bids[c, pidx >> 7] * 128 + (pidx & 127) and component cj of x at rows
+    cj*nx2 .. of x2d → [d, nchunks*8*128/E]."""
+    nchunks = vals.shape[0]
+    rpl = _LANES // E
+    p = pidx.reshape(nchunks, -1).long()
+    cols = (torch.gather(bids.long(), 1, p >> 7) * _LANES
+            + (p & (_LANES - 1)))                       # [nchunks, 1024]
+    xg = x2d.reshape(d, -1)[:, cols]                    # [d, nchunks, 1024]
+    v = vals.reshape(nchunks, d * d, -1)
+    ys = []
+    for ci in range(d):
+        contrib = v[:, ci * d] * xg[0]
+        for cj in range(1, d):
+            contrib = contrib + v[:, ci * d + cj] * xg[cj]
+        ys.append(contrib.reshape(nchunks, 8, rpl, E).sum(-1).reshape(-1))
+    return torch.stack(ys)
+
+
+def block_sell_spmv(vals, pidx, bids, x2d, E, d):
+    """Block-SELL SpMV of f32 planes: vals [nchunks, d*d, 8, 128] f32, pidx
+    [nchunks, 8, 128] int16, bids [nchunks, K] int32, x2d [d*nx2, 128] f32
+    (planar: component cj at rows cj*nx2 ..) → y [d, nchunks*8*128/E]."""
+    if vals.device.type == "cpu":
+        return block_sell_spmv_plain(vals, pidx, bids, x2d, E, d)
+    _cuda.require_hopper(vals, pidx, bids, x2d)
+    _cuda.require(vals, "vals", torch.float32, 4)
+    _cuda.require(pidx, "pidx", torch.int16, 3)
+    _cuda.require(bids, "bids", torch.int32, 2)
+    _cuda.require(x2d, "x2d", torch.float32, 2)
+    if E not in (1, 2, 4, 8, 16, 32, 64, 128):
+        raise ValueError(f"E must be a power of two <= 128, got {E}")
+    nchunks = vals.shape[0]
+    if (d < 1 or tuple(vals.shape[1:]) != (d * d, 8, _LANES)
+            or tuple(pidx.shape) != (nchunks, 8, _LANES)
+            or bids.shape[0] != nchunks or x2d.shape[1] != _LANES
+            or x2d.shape[0] % d or x2d.shape[0] == 0):
+        raise ValueError("inconsistent block-SELL plane shapes")
+    n_rows = nchunks * 8 * (_LANES // E)
+    y = torch.empty((d, n_rows), dtype=torch.float32, device=vals.device)
+    rc = _cuda.lib().fedd_block_sell_spmv_f32(
+        vals.data_ptr(), pidx.data_ptr(), bids.data_ptr(), x2d.data_ptr(),
+        y.data_ptr(), nchunks, bids.shape[1], E, d, x2d.shape[0] // d,
+        _cuda.stream_of(vals))
+    _cuda.check(rc, "block_sell_spmv")
+    _cuda.launch_counts["block_sell_spmv"] += 1
+    return y
+
+
 class SellMatrix:
     """Windowed sliced-ELL operator for y = A @ x."""
 
     def __init__(self, n_rows, n_cols, vals, pidx, bids, spill_rows,
                  spill_cols, spill_vals, nnz, data_slots, data_spill,
-                 dtype, E, K, csr_order=None):
+                 dtype, E, K, perm=None, iperm=None, csr_order=None):
         self.shape = (n_rows, n_cols)
         self.vals = vals          # [nchunks, 8, 128] dtype
         self.pidx = pidx          # [nchunks, 8, 128] int16 (k*128+lane)
@@ -91,23 +150,56 @@ class SellMatrix:
         self.dtype = dtype
         self.E = E
         self.K = K
+        self.perm = perm    # row/col permutation applied (None = identity)
+        self.iperm = iperm
         # caller-CSR nnz position of each nnz of the CSR laid out here
-        # (set by sell_padded_from; None = the same order)
+        # (set under order='rcm' and by sell_padded_from; None = same order)
         self.csr_order = csr_order
         self.device = vals.device
 
     # -- construction --------------------------------------------------------
     @classmethod
-    def from_csr(cls, A, dtype=torch.float32, E=None, K=None,
+    def from_csr(cls, A, dtype=torch.float32, E=None, K=None, order=None,
                  device="cuda"):
         """Build from a CsrMatrix (feddlib_tpu_torch.la.csr) or scipy CSR
-        (a CsrMatrix keeps its own device)."""
+        (a CsrMatrix keeps its own device); the matrix may be rectangular.
+
+        order: None (keep row order) or 'rcm' (bandwidth-reducing reverse
+        Cuthill-McKee on the symmetric pattern — for unstructured meshes
+        whose natural order scatters column support; square only).
+        """
         is_fedd = hasattr(A, "to_scipy")
         if is_fedd:
             device = A.device
         dev = resolve_device(device)
         sp = A.to_scipy().tocsr() if is_fedd else A.tocsr()
         n_rows, n_cols = sp.shape
+        perm = iperm = csr_order = None
+        if order == "rcm":
+            import scipy.sparse as sps
+            from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+            if n_rows != n_cols:
+                raise ValueError("rcm ordering needs a square matrix")
+            perm = np.asarray(reverse_cuthill_mckee(sp, symmetric_mode=True))
+            iperm = np.empty_like(perm)
+            iperm[perm] = np.arange(n_rows)
+            # track where each original nnz lands under the permutation
+            # (+1 so scipy never drops a "zero" entry structurally)
+            pos = sps.csr_matrix(
+                (np.arange(sp.nnz, dtype=np.int64) + 1,
+                 sp.indices.copy(), sp.indptr.copy()), shape=sp.shape)
+            pos = pos[perm][:, perm].tocsr()
+            pos.sort_indices()
+            if pos.nnz != sp.nnz:
+                raise ValueError(
+                    f"rcm permutation changed the nnz count "
+                    f"({pos.nnz} != {sp.nnz}): duplicate entries in the "
+                    f"input CSR would be silently summed")
+            csr_order = np.asarray(pos.data) - 1
+            sp = sp[perm][:, perm].tocsr()
+        elif order is not None:
+            raise ValueError(f"unknown order {order!r} (None or 'rcm')")
         sp.sort_indices()
 
         row_nnz = np.diff(sp.indptr)
@@ -180,7 +272,7 @@ class SellMatrix:
                                   device=dev) if n_spill else None)
 
         # device-side value fill: ship index plans, reuse device CSR values
-        if is_fedd:
+        if is_fedd and perm is None:
             data_dev = A.data.to(dtype)
         else:
             data_dev = torch.as_tensor(np.asarray(sp.data), dtype=dtype,
@@ -196,7 +288,12 @@ class SellMatrix:
                    torch.as_tensor(pidx_flat, device=dev).reshape(
                        nchunks, 8, _LANES),
                    torch.as_tensor(bids, device=dev), s_rows, s_cols, s_vals,
-                   sp.nnz, data_slots, data_spill, dtype, E, K)
+                   sp.nnz, data_slots, data_spill, dtype, E, K,
+                   None if perm is None else torch.as_tensor(
+                       perm.astype(np.int64), device=dev),
+                   None if iperm is None else torch.as_tensor(
+                       iperm.astype(np.int64), device=dev),
+                   csr_order)
 
     def with_data(self, data: torch.Tensor) -> "SellMatrix":
         """Same pattern, new CSR value array (reassembly).  `data` is in
@@ -214,13 +311,14 @@ class SellMatrix:
         return SellMatrix(self.shape[0], self.shape[1], vals, self.pidx,
                           self.bids, self.spill_rows, self.spill_cols,
                           s_vals, self.nnz, self.data_slots, self.data_spill,
-                          self.dtype, self.E, self.K, self.csr_order)
+                          self.dtype, self.E, self.K, self.perm, self.iperm,
+                          self.csr_order)
 
     # -- apply ---------------------------------------------------------------
     def operands(self):
         return (self.vals, self.pidx, self.bids, self.spill_rows,
                 self.spill_cols, self.spill_vals, self.shape[0],
-                self.shape[1], self.E)
+                self.shape[1], self.E, self.perm, self.iperm)
 
     def operator(self):
         """(fn, operands) for the solver's operator protocol."""
@@ -229,10 +327,23 @@ class SellMatrix:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return sell_op(self.operands(), x)
 
+    def hbm_bytes_per_apply(self) -> int:
+        """Device-memory bytes one apply must move (planes and x read once,
+        y written once, 16 B per spill entry)."""
+        b = (self.vals.numel() * self.vals.element_size()
+             + self.pidx.numel() * 2 + self.bids.numel() * 4
+             + _round_up(self.shape[1], _LANES) * 4 + self.shape[0] * 4)
+        if self.spill_rows is not None:
+            b += int(self.spill_rows.numel()) * 16
+        return b
+
 
 def sell_op(ops, x):
-    vals, pidx, bids, s_rows, s_cols, s_vals, n_rows, n_cols, E = ops
+    (vals, pidx, bids, s_rows, s_cols, s_vals, n_rows, n_cols, E, perm,
+     iperm) = ops
     out_dtype = x.dtype
+    if perm is not None:
+        x = x[perm]
     nx2 = max(_round_up(n_cols, _LANES) // _LANES, 1)
     x2d = torch.zeros(nx2 * _LANES, dtype=vals.dtype, device=vals.device)
     x2d[:n_cols] = x.to(vals.dtype)
@@ -243,6 +354,8 @@ def sell_op(ops, x):
         y = sell_spmv_plain(vals, pidx, bids, x2d, E)[:n_rows]
     if s_rows is not None:
         y = y.index_add(0, s_rows, s_vals * x2d.reshape(-1)[s_cols])
+    if iperm is not None:
+        y = y[iperm]
     return y.to(out_dtype)
 
 
@@ -342,3 +455,172 @@ def padded_split_op(ops, xp):
     c_ops, gplan = ops
     g = permute_op(gplan, xp)
     return sell_op(c_ops, torch.cat([xp, g.to(xp.dtype)]))
+
+
+# -- Block-SELL: windowed sliced-ELL over d x d node blocks ------------------
+
+class BlockSellMatrix:
+    """Windowed sliced-ELL SpMV for VECTOR-FIELD operators on unstructured
+    meshes (dofs-per-node d > 1, NodeWise ordering) — kernel B5.
+
+    The slot layout (window blocks, lane indices) is built once on the
+    NODE pattern; each slot then carries the d x d block of values, so the
+    int16 index stream is read once for d*d values and node rows pad to a
+    smaller E than dof rows would.
+
+    Vectors are PLANAR [d, nn] (see la/dia.BlockDiaMatrix).  Non-square or
+    non-NodeWise matrices give None; use auto_spmv, which goes on to the
+    scalar formats.
+    """
+
+    def __init__(self, n, d, layout, vals, spill_rows, spill_cols,
+                 spill_vals, nnz, dof_slots, spill_sel, dtype):
+        self.shape = (n, n)
+        self.d = d
+        self.layout = layout            # node-pattern SellMatrix (slots)
+        self.vals = vals                # [nchunks, d*d, 8, 128]
+        self.spill_rows = spill_rows    # planar flat ids (c*nn + node)
+        self.spill_cols = spill_cols
+        self.spill_vals = spill_vals
+        self.nnz = nnz
+        self.dof_slots = dof_slots      # device: csr nnz -> flat val slot
+        self.spill_sel = spill_sel
+        self.dtype = dtype
+        self.device = vals.device
+
+    @classmethod
+    def from_csr(cls, A, d, dtype=torch.float32, E=None, K=None,
+                 device="cuda"):
+        import scipy.sparse as sps
+
+        is_fedd = hasattr(A, "to_scipy")
+        if is_fedd:
+            device = A.device
+        dev = resolve_device(device)
+        sp = (A.to_scipy() if is_fedd else A).tocsr()
+        sp.sort_indices()
+        n = sp.shape[0]
+        if sp.shape[0] != sp.shape[1] or n == 0 or d <= 1 or n % d:
+            return None
+        nn = n // d
+        row = np.repeat(np.arange(n, dtype=np.int64), np.diff(sp.indptr))
+        col = sp.indices.astype(np.int64)
+        nr, ci = row // d, row % d
+        nc, cj = col // d, col % d
+        keys = nr * nn + nc
+        ukeys = np.unique(keys)
+        if d * d * len(ukeys) > 1.34 * sp.nnz:
+            # pattern is not d x d node-blocked (e.g. a merged saddle-point
+            # system): padding the missing block entries would blow storage
+            return None
+        sp_node = sps.csr_matrix(
+            (np.ones(len(ukeys), np.float32),
+             (ukeys // nn, ukeys % nn)), shape=(nn, nn))
+        layout = SellMatrix.from_csr(sp_node, dtype=torch.float32, E=E, K=K,
+                                     device=dev)
+        nslot = layout.vals.numel()                    # nchunks*8*128
+
+        pair_idx = np.searchsorted(ukeys, keys)        # dof nnz -> node pair
+        s = layout.data_slots[pair_idx]                # flat node slot or -1
+        plane = ci * d + cj
+        dof_slots = np.where(s >= 0, plane * nslot + s, -1)
+
+        data_dev = (A.data.to(dtype) if is_fedd else
+                    torch.as_tensor(np.asarray(sp.data), dtype=dtype,
+                                    device=dev))
+        slots_dev = torch.as_tensor(dof_slots, device=dev)
+        vals = _block_fill(data_dev, slots_dev, d, layout.vals.shape[0])
+
+        spill_idx = np.flatnonzero(s < 0)
+        if len(spill_idx):
+            spill_sel = torch.as_tensor(spill_idx, device=dev)
+            # planar flat ids: dof (node, c) lives at c*nn + node
+            sr, sc = row[spill_idx], col[spill_idx]
+            s_rows = torch.as_tensor((sr % d) * nn + sr // d, device=dev)
+            s_cols = torch.as_tensor((sc % d) * nn + sc // d, device=dev)
+            s_vals = data_dev[spill_sel]
+        else:
+            spill_sel = s_rows = s_cols = s_vals = None
+        return cls(n, d, layout, vals, s_rows, s_cols, s_vals, sp.nnz,
+                   slots_dev, spill_sel, dtype)
+
+    def with_data(self, data: torch.Tensor) -> "BlockSellMatrix":
+        dd = data.to(device=self.device, dtype=self.dtype)
+        vals = _block_fill(dd, self.dof_slots, self.d,
+                           self.layout.vals.shape[0])
+        s_vals = dd[self.spill_sel] if self.spill_sel is not None else None
+        return BlockSellMatrix(self.shape[0], self.d, self.layout, vals,
+                               self.spill_rows, self.spill_cols, s_vals,
+                               self.nnz, self.dof_slots, self.spill_sel,
+                               self.dtype)
+
+    # -- vector layout -------------------------------------------------------
+    def to_planar(self, x: torch.Tensor) -> torch.Tensor:
+        """NodeWise interleaved [nn*d] → planar [d, nn]."""
+        return x.reshape(self.shape[0] // self.d, self.d).T
+
+    def from_planar(self, xc: torch.Tensor) -> torch.Tensor:
+        return xc.T.reshape(-1)
+
+    # -- applies -------------------------------------------------------------
+    def operands(self):
+        lay = self.layout
+        return (self.vals, lay.pidx, lay.bids, self.spill_rows,
+                self.spill_cols, self.spill_vals, self.shape[0] // self.d,
+                self.d, lay.E)
+
+    def planar_operator(self):
+        """(fn, operands) on planar [d, nn] vectors."""
+        return block_sell_planar_op, self.operands()
+
+    def operator(self):
+        """(fn, operands) on NodeWise interleaved vectors (two transposes
+        per apply)."""
+        return block_sell_op, self.operands()
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return block_sell_op(self.operands(), x)
+
+    def hbm_bytes_per_apply(self) -> int:
+        isz = self.vals.element_size()
+        b = (self.vals.numel() * isz + self.layout.pidx.numel() * 2
+             + self.layout.bids.numel() * 4 + 2 * self.shape[0] * isz)
+        if self.spill_rows is not None:
+            b += int(self.spill_rows.numel()) * (8 + 2 * isz)
+        return b
+
+
+def _block_fill(data, dof_slots, d, nchunks):
+    """CSR values → the [nchunks, d*d, 8, 128] planes.  dof_slots index the
+    plane-major order [d*d, nchunks*1024] (as the JAX package scatters);
+    the kernel reads the chunk-major transpose."""
+    vals = _fill_slots(data, dof_slots, d * d * nchunks * 8 * _LANES)
+    return vals.reshape(d * d, nchunks, 8, _LANES).permute(
+        1, 0, 2, 3).contiguous()
+
+
+def block_sell_planar_op(ops, xc):
+    """xc [d, nn] planar → y [d, nn]."""
+    vals, pidx, bids, s_rows, s_cols, s_vals, nn, d, E = ops
+    out_dtype = xc.dtype
+    nx2 = max(_round_up(nn, _LANES) // _LANES, 1)
+    xpad = torch.zeros((d, nx2 * _LANES), dtype=vals.dtype,
+                       device=vals.device)
+    xpad[:, :nn] = xc.to(vals.dtype)
+    x2d = xpad.reshape(d * nx2, _LANES)            # component cj at rows
+    if vals.dtype == torch.float32:                # [cj*nx2, (cj+1)*nx2)
+        y = block_sell_spmv(vals, pidx, bids, x2d, E, d)
+    else:  # the JAX package sends only f32 through its kernel
+        y = block_sell_spmv_plain(vals, pidx, bids, x2d, E, d)
+    y = y[:, :nn]
+    if s_rows is not None:
+        contrib = s_vals * xpad[:, :nn].reshape(-1)[s_cols]
+        y = y.reshape(-1).index_add(0, s_rows, contrib).reshape(d, nn)
+    return y.to(out_dtype)
+
+
+def block_sell_op(ops, x):
+    """Interleaved NodeWise x [nn*d] → y [nn*d]."""
+    nn, d = ops[6], ops[7]
+    y = block_sell_planar_op(ops, x.reshape(nn, d).T)
+    return y.T.reshape(-1).to(x.dtype)

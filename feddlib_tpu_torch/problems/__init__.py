@@ -1,4 +1,5 @@
 from feddlib_tpu_torch.problems.base import Problem
 from feddlib_tpu_torch.problems.laplace import Laplace
+from feddlib_tpu_torch.problems.linelas import LinElas
 
-__all__ = ["Problem", "Laplace"]
+__all__ = ["Problem", "Laplace", "LinElas"]

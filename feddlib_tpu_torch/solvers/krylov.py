@@ -38,6 +38,20 @@ class KrylovResult:
         yield self.x
         yield self
 
+    def print_history(self, label: str = "Krylov", every: int = 1,
+                      file=None) -> None:
+        """Belos-style iteration log (OutputFrequency = `every`)."""
+        import sys
+
+        f = file or sys.stdout
+        if self.history is None:
+            print(f"{label}: no history recorded", file=f)
+            return
+        h = np.asarray(self.history)
+        for k, v in enumerate(h):
+            if k % every == 0 or k == len(h) - 1:
+                print(f"{label} Iter {k:4d}: ||r||/||b|| = {v:.6e}", file=f)
+
 
 def _identity(x):
     return x

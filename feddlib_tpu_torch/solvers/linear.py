@@ -1,12 +1,16 @@
 """LinearSolver + Preconditioner factory — counterpart of
 feddlib_tpu/solvers/linear.py.
 
-This slice ports the mixed-precision path ('Use Mixed Precision'): an f64
-iterative refinement around an f32 restarted GMRES that runs in the padded
-cluster space, with the padded SELL operator (`PaddedSplitSpMV`) as A and
-the restricted dense-block Schwarz — optionally with the padded GDSW
-coarse level (`'TwoLevel': True`) — as M.  The other solve paths raise
-NotImplementedError and name their ROADMAP.md item.
+Two solve paths are ported.  The mixed-precision path ('Use Mixed
+Precision'): an f64 iterative refinement around an f32 restarted GMRES that
+runs in the padded cluster space, with the padded SELL operator
+(`PaddedSplitSpMV`) as A and the restricted dense-block Schwarz — optionally
+with the padded GDSW coarse level (`'TwoLevel': True`) — as M.  And the f64
+Krylov path for `'Preconditioner Type'` None, Id and Jacobi, whose A-apply
+goes through a gather-free DIA / block-DIA operator on the card when the
+matrix is banded (`'SpMV Format': 'auto'`).  The Schwarz preconditioner
+types and the distributed solve raise NotImplementedError and name their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -14,18 +18,60 @@ from __future__ import annotations
 import warnings
 
 import numpy as np
+import torch
 
 from feddlib_tpu_torch.la.block import BlockVector
 from feddlib_tpu_torch.mesh.partition import MeshPartition
 
 
+def _jacobi_op(ops, r):
+    return ops[0] * r
+
+
 class Preconditioner:
-    """Preconditioner factory bound to a problem.  Of the JAX factory only
-    the merged dof map is ported; building the f64 Schwarz/GDSW
-    preconditioners (`build`) waits for ROADMAP.md A5."""
+    """Preconditioner factory bound to a problem: builds once, reusable
+    across solves, rebuilt on request (reassembly).  Ported: None / Id /
+    Jacobi and the merged dof map; the f64 Schwarz/GDSW types wait for
+    ROADMAP.md A5."""
 
     def __init__(self, problem):
         self.problem = problem
+        self._built = False
+        self._op = None  # (fn, operands), or None for the identity
+
+    def build(self, matrix) -> None:
+        params = self.problem.parameter_list
+        prec_type = params.get("Preconditioner Type", "SchwarzTwoLevel")
+        self._op = None
+        if prec_type in ("None", "Id"):
+            self._built = True
+            return
+        if prec_type == "Jacobi":
+            d = matrix.diagonal()
+            dinv = torch.where(d != 0, 1.0 / torch.where(d == 0, 1.0, d),
+                               1.0)
+            self._op = (_jacobi_op, (dinv,))
+            self._built = True
+            return
+        raise NotImplementedError(
+            f"'Preconditioner Type': {prec_type!r} is not ported yet: the "
+            f"f64 Schwarz / GDSW / FaCSI preconditioners wait for "
+            f"ROADMAP.md A5 (ported: None, Id, Jacobi, and the "
+            f"mixed-precision path 'Use Mixed Precision': True)")
+
+    def built(self) -> bool:
+        return self._built
+
+    def apply(self):
+        """M as a callable r → M r, or None for the identity."""
+        if self._op is None:
+            return None
+        fn, ops = self._op
+        return lambda r: fn(ops, r)
+
+    def operator(self):
+        """M as (fn, operands), or None for the identity."""
+        return self._op
 
     def _merged_dof_map(self, part: MeshPartition):
         """Dof-level unique map for the merged monolithic system: blocks on
@@ -102,6 +148,12 @@ class LinearSolver:
         tol = float(params.get("Convergence Tolerance", 1e-8))
         maxiter = int(params.get("Maximum Iterations", 1000))
         restart = int(params.get("Num Blocks", 100))
+        method = params.get("Solver Type", "gmres").lower()
+
+        # Belos-style iteration output (XML keys Verbosity/Output Frequency)
+        verbose = bool(params.get("Verbose", False)) or \
+            "IterationDetails" in str(params.get("Verbosity", ""))
+        out_freq = int(params.get("Output Frequency", 10))
 
         system = problem.bc_system()
         if len(problem.variables) == 1:
@@ -115,18 +167,77 @@ class LinearSolver:
         if bool(params.get("Use Mixed Precision", False)):
             return self._solve_mixed(problem, A, b, params, tol, maxiter,
                                      restart)
-        raise NotImplementedError(
-            "only the mixed-precision solve is ported ('Use Mixed "
-            "Precision': True); the f64 Krylov + Schwarz path waits for "
-            "ROADMAP.md A5")
+
+        from feddlib_tpu_torch.solvers.krylov import solve
+
+        # 'Reuse Preconditioner': keep the built preconditioner across
+        # reassemblies — valid since M need only approximate A⁻¹
+        reuse = bool(params.get("Reuse Preconditioner", False))
+        prec = problem.preconditioner
+        if not prec.built() or (problem._prec_stale and not reuse):
+            prec.build(A)
+            problem._prec_stale = False
+        A_fn, A_ops = self._auto_format_operator(A, problem, params) \
+            or A.operator()
+        M_fn, M_ops = prec.operator() or (None, ())
+        res = solve("cg" if method == "cg" else "gmres", A_fn, A_ops,
+                    b.concat(), M_fn=M_fn, M_ops=M_ops, tol=tol,
+                    maxiter=maxiter, restart=restart, record_history=verbose)
+        problem.last_relres = res.relres
+        problem.last_history = res.history
+        if verbose:
+            res.print_history(label=f"Belos {method.upper()}", every=out_freq)
+        if not res.converged:
+            warnings.warn(f"linear solve not converged: relres={res.relres}")
+        return BlockVector.split(res.x, problem.block_sizes()), res.iters
+
+    def _auto_format_operator(self, A, problem, params):
+        """Gather-free SpMV operator for the Krylov A-apply on the card
+        (DIA / block-DIA, la/dia.py): banded operators stream their
+        diagonals with unit-stride reads where the default ELL apply
+        gathers.  Returns (fn, ops), or None for a non-banded pattern, a
+        matrix on the CPU (as the JAX package does on its CPU backend), or
+        'SpMV Format': 'ell'.
+
+        The Krylov vectors here are NodeWise interleaved, so block formats
+        run through their interleaved operator() and pay two transposes
+        per apply.  The format object is cached on the problem and
+        refreshed with `with_data` across reassemblies."""
+        if params.get("SpMV Format", "auto") != "auto":
+            return None
+        if A.device.type == "cpu" or A.shape[0] != A.shape[1]:
+            return None
+        cache = getattr(problem, "_autofmt", None)
+        if cache is not None and cache["pattern"] is A.pattern:
+            if cache["fmt"] is None:
+                return None
+            if cache["data"] is not A.data:
+                cache["fmt"] = cache["fmt"].with_data(A.data)
+                cache["data"] = A.data
+            return cache["fmt"].operator()
+        from feddlib_tpu_torch.la.dia import BlockDiaMatrix, DiaMatrix
+
+        # the f64 guard is 16 B/nnz: the ELL apply streams 12 B/nnz but
+        # gathers x — 1.3x more bytes with unit stride wins
+        guard = 16.0 if A.dtype == torch.float64 else 8.0
+        fmt = None
+        if len(problem.variables) == 1:
+            d = int(problem.variables[0][1])
+            if d > 1:
+                fmt = BlockDiaMatrix.from_csr(A, d, dtype=A.dtype,
+                                              max_bytes_per_nnz=guard)
+        if fmt is None:
+            fmt = DiaMatrix.from_csr(A, dtype=A.dtype,
+                                     max_bytes_per_nnz=guard)
+        problem._autofmt = {"pattern": A.pattern, "fmt": fmt,
+                            "data": A.data}
+        return None if fmt is None else fmt.operator()
 
     def _solve_mixed(self, problem, A, b: BlockVector, params, tol,
                      maxiter, restart):
         """f64 residual refinement around an f32 inner GMRES — padded SELL
         SpMV + dense-block restricted Schwarz (+ padded GDSW coarse level),
         the whole inner loop in PADDED cluster space."""
-        import torch
-
         from feddlib_tpu_torch.la.dense_blocks import (DenseBlockSchwarz,
                                                        DenseBlockSpMV)
         from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
@@ -139,10 +250,20 @@ class LinearSolver:
         two_level = bool(params.get("TwoLevel", params.get("Two Level",
                                                            False)))
         # the operators and the factored preconditioner are kept on the
-        # problem and reused while the matrix pattern is unchanged (the
-        # reassembly refresh through with_data comes with the nonlinear
-        # problems, ROADMAP.md A7)
+        # problem and reused while the matrix pattern is unchanged
         cache = getattr(problem, "_mixed_cache", None)
+        if (cache is not None and cache["pattern"] is A.pattern
+                and problem._prec_stale
+                and bool(params.get("Reuse Preconditioner", True))):
+            # reassembly with an unchanged pattern: refresh the OPERATOR
+            # values on the device (with_data) and keep the factorized
+            # Schwarz/coarse level — M need only approximate A⁻¹, and the
+            # f64 outer refinement guards accuracy.  'Reuse
+            # Preconditioner': False forces the full rebuild.
+            sell32 = cache["sell"].with_data(A.data)
+            cache["sell"] = sell32
+            cache["A_op"] = sell32.operator()
+            problem._prec_stale = False
         if (cache is None or cache["pattern"] is not A.pattern
                 or problem._prec_stale):
             dom0 = problem.domains[0]

@@ -1,9 +1,9 @@
 """Carry the JAX package's assembled state into the port.
 
 The system has no weights; what crosses between the two packages is the
-assembled state — a CSR matrix, a mesh, a partition — given as numpy
-arrays, so both packages can build every operator from the same matrix and
-the same clusters.  Copy a jax array with `np.array(a, copy=True)` first:
+assembled state — a CSR matrix, a mesh, a partition, a built SpMV format —
+given as numpy arrays, so both packages can build every operator from the
+same matrix and the same clusters, or apply the very same format planes.  Copy a jax array with `np.array(a, copy=True)` first:
 `np.asarray` of a jax array is read-only.
 """
 
@@ -15,6 +15,9 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch.la.csr import CsrMatrix, SparsityPattern
+from feddlib_tpu_torch.la.dia import (BlockDiaMatrix, DiaMatrix,
+                                      SplitDiaMatrix, split_gathers)
+from feddlib_tpu_torch.la.sell import BlockSellMatrix, SellMatrix
 from feddlib_tpu_torch.mesh.mesh import Mesh
 from feddlib_tpu_torch.mesh.partition import MeshPartition
 
@@ -58,3 +61,85 @@ def partition_from_numpy(mesh: Mesh, elem_part,
     elem_part = np.array(elem_part, dtype=np.int32, copy=True)
     n = int(n_parts if n_parts is not None else elem_part.max() + 1)
     return MeshPartition(mesh, n, elem_part=elem_part)
+
+
+# -- SpMV formats: the JAX object's arrays (as numpy) → the port's object ----
+
+def _dev(a, device, dtype=None):
+    """numpy (or None) → tensor on `device`; index arrays become int64."""
+    if a is None:
+        return None
+    a = np.array(a, copy=True)
+    if dtype is None and a.dtype.kind in "iu" and a.dtype != np.int16:
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def sell_from_numpy(shape, vals, pidx, bids, E, K, nnz, data_slots,
+                    data_spill, spill_rows=None, spill_cols=None,
+                    spill_vals=None, perm=None, iperm=None, csr_order=None,
+                    dtype=torch.float32, device="cuda") -> SellMatrix:
+    """SellMatrix from the planes and plans of a JAX `SellMatrix`."""
+    return SellMatrix(
+        int(shape[0]), int(shape[1]), _dev(vals, device, dtype),
+        _dev(pidx, device), _dev(bids, device, torch.int32),
+        _dev(spill_rows, device), _dev(spill_cols, device),
+        _dev(spill_vals, device, dtype), int(nnz),
+        np.array(data_slots, dtype=np.int64, copy=True),
+        np.array(data_spill, dtype=np.int64, copy=True), dtype, int(E),
+        int(K), _dev(perm, device), _dev(iperm, device),
+        None if csr_order is None else np.array(csr_order, copy=True))
+
+
+def block_sell_from_numpy(n, d, layout: SellMatrix, vals, dof_slots, nnz,
+                          spill_rows=None, spill_cols=None, spill_vals=None,
+                          spill_sel=None,
+                          dtype=torch.float32) -> BlockSellMatrix:
+    """BlockSellMatrix from a JAX `BlockSellMatrix`: `layout` is its
+    node-pattern layout carried over with sell_from_numpy, vals the
+    [nchunks, d*d, 8, 128] planes."""
+    dev = layout.device
+    return BlockSellMatrix(
+        int(n), int(d), layout, _dev(vals, dev, dtype),
+        _dev(spill_rows, dev), _dev(spill_cols, dev),
+        _dev(spill_vals, dev, dtype), int(nnz), _dev(dof_slots, dev),
+        _dev(spill_sel, dev), dtype)
+
+
+def dia_from_numpy(shape, offsets, vals, data_slots, nnz, spill_rows=None,
+                   spill_cols=None, spill_vals=None, spill_sel=None,
+                   dtype=torch.float32, device="cuda") -> DiaMatrix:
+    """DiaMatrix from a JAX `DiaMatrix` (vals [n_offsets, n_rows])."""
+    return DiaMatrix(
+        int(shape[0]), int(shape[1]), tuple(int(o) for o in offsets),
+        _dev(vals, device, dtype), _dev(spill_rows, device),
+        _dev(spill_cols, device), _dev(spill_vals, device, dtype), int(nnz),
+        _dev(data_slots, device), _dev(spill_sel, device), dtype)
+
+
+def block_dia_from_numpy(n, d, offsets, vals, data_slots, nnz,
+                         spill_rows=None, spill_cols=None, spill_vals=None,
+                         spill_sel=None, dtype=torch.float32,
+                         device="cuda") -> BlockDiaMatrix:
+    """BlockDiaMatrix from a JAX `BlockDiaMatrix` (vals [d, n_off*d, nn],
+    spill ids planar)."""
+    return BlockDiaMatrix(
+        int(n), int(d), tuple(int(o) for o in offsets),
+        _dev(vals, device, dtype), _dev(spill_rows, device),
+        _dev(spill_cols, device), _dev(spill_vals, device, dtype), int(nnz),
+        _dev(data_slots, device), _dev(spill_sel, device), dtype)
+
+
+def split_dia_from_numpy(dia_part, sell_part, d, node_perm, sel_dia, sel_res,
+                         nnz, dtype=torch.float32) -> SplitDiaMatrix:
+    """SplitDiaMatrix from a JAX `SplitDiaMatrix`: its two parts carried
+    over with the functions above, its RCM node permutation and its
+    with_data selections.  The entry and exit gathers are rebuilt from
+    `node_perm` (the JAX object keeps only their TPU window plans)."""
+    node_perm = np.array(node_perm, dtype=np.int64, copy=True)
+    gin, gout = split_gathers(node_perm, int(d), dia_part.device)
+    return SplitDiaMatrix(
+        dia_part, sell_part, int(d), len(node_perm), node_perm,
+        np.array(sel_dia, dtype=np.int64, copy=True),
+        np.array(sel_res, dtype=np.int64, copy=True), int(nnz), dtype, gin,
+        gout)

@@ -5,8 +5,8 @@ PyTorch alone:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: B1 bit-exact (a gather); B2 1e-6 and B3/B4 1e-5 relative to
-max|y| (f32 sums in another order)."""
+Tolerances: B1 bit-exact (a gather); B2 and B5 1e-6 and B3/B4 1e-5 relative
+to max|y| (f32 sums in another order)."""
 
 import numpy as np
 import pytest
@@ -63,6 +63,105 @@ def test_b2_sell_on_card(hopper, n, K):
     assert _rel(A.matvec(x).double(), ref) < 1e-5
 
 
+def _block_matrix(nn, d, per_row, seed):
+    """Random d x d node-blocked CSR: `per_row` node columns within a band
+    around each node row."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(nn), per_row)
+    cols = np.clip(rows + rng.integers(-300, 301, rows.size), 0, nn - 1)
+    P = sps.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(nn, nn))
+    P.data[:] = 1.0
+    A = sps.kron(P, np.ones((d, d))).tocsr()
+    A.sort_indices()
+    A.data = rng.standard_normal(A.nnz)
+    return A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,E,nn,per_row,K", [
+    (3, 16, 3000, 9, None),      # T = 16: two rows per warp
+    (2, 16, 140000, 5, None),    # 2,188 chunks: above the TPU's launch limit
+    (3, 64, 20000, 40, None),    # T = 32, two trips per row
+    (2, 128, 20000, 70, None),   # 2,500 chunks, four trips per row
+    (3, 64, 5000, 40, 2),        # spill through a small K
+    (2, 16, 5000, 9, 1),         # spill, d = 2
+    (4, 32, 2000, 20, None),     # d outside the unrolled cases
+    (5, 8, 700, 6, 3),
+])
+def test_b5_block_sell_on_card(hopper, d, E, nn, per_row, K):
+    A = _block_matrix(nn, d, per_row, seed=d * 1000 + E)
+    B = sell.BlockSellMatrix.from_csr(A, d, dtype=torch.float32, E=E, K=K,
+                                      device=hopper)
+    assert B is not None and B.layout.E == E
+    assert (B.spill_rows is not None) == (K is not None)
+    lay = B.layout
+    nx2 = (nn + 127) // 128
+    x2d = torch.randn(d * nx2, 128, device=hopper)
+    before = _cuda.launch_counts["block_sell_spmv"]
+    y = sell.block_sell_spmv(B.vals, lay.pidx, lay.bids, x2d, E, d)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["block_sell_spmv"] == before + 1
+    y0 = sell.block_sell_spmv_plain(B.vals, lay.pidx, lay.bids, x2d, E, d)
+    assert y.shape == y0.shape == (d, B.vals.shape[0] * 8 * (128 // E))
+    assert _rel(y, y0) < 1e-6
+    x = torch.randn(A.shape[0], device=hopper)
+    ref = torch.as_tensor(A @ x.cpu().double().numpy(), device=hopper)
+    assert _rel(B.matvec(x).double(), ref) < 1e-5
+    B2 = B.with_data(torch.as_tensor(A.data * 2.0, device=hopper))
+    assert _rel(B2.matvec(x).double(), 2.0 * ref) < 1e-5
+
+
+@pytest.mark.gpu
+def test_auto_spmv_split_runs_b1_and_b5_on_card(hopper):
+    """P2 elasticity on the card: auto_spmv gives the RCM split with a
+    block-SELL residue, and one apply launches B5 once and B1 twice."""
+    from feddlib_tpu_torch.fe import ops
+    from feddlib_tpu_torch.la.dia import SplitDiaMatrix, auto_spmv
+
+    dom = Domain.structured(3, 4, device=hopper).p2_domain()
+    K = ops.assemble_lin_elasticity(dom, 1.0, 1.5)
+    F = auto_spmv(K, dtype=torch.float32, dofs_per_node=3)
+    assert isinstance(F, SplitDiaMatrix)
+    assert isinstance(F.sell, sell.BlockSellMatrix)
+    x = torch.randn(K.shape[0], device=hopper)
+    _cuda.reset_launch_counts()
+    y = F.matvec(x)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["block_sell_spmv"] == 1
+    assert _cuda.launch_counts["permute_gather"] == 2
+    ref = torch.as_tensor(K.to_scipy() @ x.cpu().double().numpy(),
+                          device=hopper)
+    assert _rel(y.double(), ref) < 1e-5
+
+
+@pytest.mark.gpu
+def test_f64_krylov_takes_block_dia_on_card(hopper):
+    """LinElas with Jacobi on the card: the f64 branch applies A through a
+    BlockDiaMatrix ('SpMV Format': 'auto') and agrees with the CPU solve."""
+    from feddlib_tpu_torch.la.dia import BlockDiaMatrix
+    from feddlib_tpu_torch.problems import LinElas
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    sol = {}
+    for dev in ("cpu", hopper):
+        pl = ParameterList("P", {"Preconditioner Type": "Jacobi"})
+        p = LinElas(Domain.structured(3, 6, device=dev), parameter_list=pl,
+                    device=dev)
+        p.assemble()
+        p.assemble_source(lambda x: [0.0, 0.0, -0.1])
+        p.add_bc(lambda x, t: 0.0, 1, 0)
+        p.set_boundaries_rhs()
+        its = p.solve()
+        assert p.last_relres <= 1e-8
+        sol[str(dev)] = (its, p.solution[0].cpu())
+        if dev != "cpu":
+            assert isinstance(p._autofmt["fmt"], BlockDiaMatrix)
+    assert abs(sol["cpu"][0] - sol[str(hopper)][0]) <= 2
+    assert _rel(sol[str(hopper)][1], sol["cpu"][1]) < 1e-7
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("P,R,W", [(8, 48, 136), (3, 40, 1001), (2, 9, 31)])
 def test_b3_b4_gemv_on_card(hopper, P, R, W):
@@ -85,6 +184,15 @@ def test_wrappers_reject_bad_inputs(hopper):
     with pytest.raises(ValueError):
         dk.dense_block_mv(torch.randn(2, 3, 4, device=hopper),
                           torch.randn(2, 5, device=hopper))
+    vals = torch.zeros(2, 9, 8, 128, device=hopper)
+    pidx = torch.zeros(2, 8, 128, dtype=torch.int16, device=hopper)
+    bids = torch.zeros(2, 1, dtype=torch.int32, device=hopper)
+    with pytest.raises(ValueError):  # 9 planes are d = 3, not 2
+        sell.block_sell_spmv(vals, pidx, bids,
+                             torch.zeros(2, 128, device=hopper), 16, 2)
+    with pytest.raises(TypeError):
+        sell.block_sell_spmv(vals.double(), pidx, bids,
+                             torch.zeros(3, 128, device=hopper), 16, 3)
 
 
 @pytest.mark.gpu
