@@ -11,8 +11,12 @@ exits non-zero):
      scipy, the kernel launch counters must show B1, B2 and B3; a small
      solve on the card must match the same solve on the CPU;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (B4 at phase 4's), timed beside a one-call PyTorch
-     yardstick and the card's bound for the same work;
+     main path's shapes (B4 at phase 4's, and at the main path's level-1
+     inverse cast to bf16, 0.59 GB, beyond the L2), timed beside a one-call
+     PyTorch yardstick and the card's bound for the same work; the SELL
+     kernels (B2, B5) beside two CSR calls, one over the nonzero values and
+     one over every stored entry; B2 and its CSR calls also with their
+     inputs out of L2 (cycled copies), as the solve finds them;
   4. the bench-chain configuration at Domain.structured(3, 40) (68,921
      dofs): additive two-level Schwarz with bf16 level-1 and coarse stores,
      the M(A(x)) apply time, and the refinement to 1e-8 (B4 must launch);
@@ -37,6 +41,7 @@ a result when no CUDA device is visible or the package is missing.
 """
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -50,6 +55,7 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12
+L2_BYTES = 50 * 2**20
 
 
 def _phase(name, t0):
@@ -58,22 +64,42 @@ def _phase(name, t0):
 
 def _device_ms(torch, fn, samples=25, calls=20):
     """Median device time of one call: each sample queues `calls` calls
-    behind a spin kernel, so the host's launch overhead is hidden."""
-    for _ in range(3):
-        fn()
+    behind a spin kernel, so the host's launch overhead is hidden.  `fn`
+    may be a list of calls (from _cold_calls), taken in turn."""
+    fns = fn if isinstance(fn, list) else [fn]
+    for i in range(max(3, len(fns))):
+        fns[i % len(fns)]()
     torch.cuda.synchronize()
-    out = []
+    out, k = [], 0
     for _ in range(samples):
         torch.cuda._sleep(50_000_000)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         for _ in range(calls):
-            fn()
+            fns[k % len(fns)]()
+            k += 1
         e.record()
         e.synchronize()
         out.append(s.elapsed_time(e) / calls)
     return statistics.median(out)
+
+
+def _nbytes(t):
+    parts = ((t.crow_indices(), t.col_indices(), t.values())
+             if t.is_sparse_csr else (t,))
+    return sum(p.numel() * p.element_size() for p in parts)
+
+
+def _cold_calls(fn, *tensors):
+    """Calls fn(*copies) over enough copies of `tensors` that the others
+    move 3x the L2 between two uses of one copy: taken in turn by
+    _device_ms, they time fn with these inputs out of L2, as a solve finds
+    them (B3's level-1 stream evicts them between two applies)."""
+    n_bytes = sum(_nbytes(t) for t in tensors)
+    n = -(-3 * L2_BYTES // n_bytes) + 1
+    return [functools.partial(fn, *(t.clone() for t in tensors))
+            for _ in range(max(n, 3))]
 
 
 def _bound(n_bytes, n_ops, peak_ops):
@@ -121,16 +147,49 @@ def _linelas(torch, dom, params, device):
     return prob
 
 
+def _bench_chain(torch, np, n, clusters, device):
+    """Phase 4's configuration: the Dirichlet Poisson system of
+    Domain.structured(3, n) assembled on the host, the solve's padded
+    operators on `clusters` point clusters, and the additive two-level
+    Schwarz with bf16 level-1 and coarse stores."""
+    from types import SimpleNamespace
+
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.fe.host_assembly import host_poisson_dirichlet
+    from feddlib_tpu_torch.la.csr import CsrMatrix
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond.cluster_coarse import \
+        PaddedTwoLevelSchwarz
+    from feddlib_tpu_torch.solvers.linear import point_cluster_operators
+
+    dom = Domain.structured(3, n, device=device)
+    K_sp, b_np = host_poisson_dirichlet(dom)
+    K = CsrMatrix.from_scipy(K_sp, device=device)
+    db, Ap = point_cluster_operators(K, dom.mesh.points, clusters, 1)
+    A_fn, A_ops = Ap.operator()
+    prec = PaddedTwoLevelSchwarz(
+        K, MeshPartition(dom.mesh, clusters), db,
+        dirichlet_mask=np.asarray(dom.mesh.point_flags) == 1,
+        level_combination="Additive", l1_store_dtype=torch.bfloat16,
+        coarse_store_dtype=torch.bfloat16, A_padded_op=(A_fn, A_ops))
+    M_fn, M_ops = prec.padded_operator()
+    return SimpleNamespace(K_sp=K_sp, b_np=b_np, K=K, db=db, Ap=Ap,
+                           prec=prec, A_fn=A_fn, A_ops=A_ops, M_fn=M_fn,
+                           M_ops=M_ops)
+
+
 def _host_relres(np, A_sp, b, x):
     """||b - A x|| / ||b|| in f64 on the host."""
     b, x = b.double().cpu().numpy(), x.double().cpu().numpy()
     return float(np.linalg.norm(b - A_sp @ x) / np.linalg.norm(b))
 
 
-def _block_sell_to_torch_csr(torch, bs):
+def _block_sell_to_torch_csr(torch, bs, stored=False):
     """The block-SELL planes back to one torch CSR tensor on the planar
     padded spaces the kernel works in (the B5 yardstick): row ci*n_rows + r,
-    column cj*nx2*128 + node column."""
+    column cj*nx2*128 + node column.  It keeps the nonzero values, or with
+    `stored` every entry the matrix stores (zeros included: the kernel's
+    work without the padding)."""
     lay, d = bs.layout, bs.d
     nch, E = bs.vals.shape[0], lay.E
     n_rows = nch * 8 * (128 // E)
@@ -139,11 +198,16 @@ def _block_sell_to_torch_csr(torch, bs):
     ncol = (torch.gather(lay.bids.long(), 1, p >> 7) * 128
             + (p & 127)).reshape(-1)
     nrow = torch.arange(ncol.numel(), device=ncol.device) // E
+    # dof_slots index the plane-major [d*d, nch*1024] order
+    in_use = torch.zeros(d * d * nch * 1024, dtype=torch.bool,
+                         device=ncol.device)
+    in_use[bs.dof_slots[bs.dof_slots >= 0]] = True
+    in_use = in_use.reshape(d * d, -1)
     rows, cols, vals = [], [], []
     for ci in range(d):
         for cj in range(d):
             v = bs.vals[:, ci * d + cj].reshape(-1)
-            keep = v != 0
+            keep = in_use[ci * d + cj] if stored else v != 0
             rows.append(ci * n_rows + nrow[keep])
             cols.append(cj * nx + ncol[keep])
             vals.append(v[keep])
@@ -153,8 +217,10 @@ def _block_sell_to_torch_csr(torch, bs):
     return coo.to_sparse_csr()
 
 
-def _sell_to_torch_csr(torch, sm):
-    """The SELL planes back to a torch CSR tensor (the B2 yardstick)."""
+def _sell_to_torch_csr(torch, sm, stored=False):
+    """The SELL planes back to a torch CSR tensor (the B2 yardstick): the
+    nonzero values, or with `stored` every entry the matrix stores (zeros
+    included: the kernel's work without the padding)."""
     E = sm.E
     nch = sm.vals.shape[0]
     vals = sm.vals.reshape(-1)
@@ -162,7 +228,13 @@ def _sell_to_torch_csr(torch, sm):
     cols = (torch.gather(sm.bids.long(), 1, p >> 7) * 128
             + (p & 127)).reshape(-1)
     rows = torch.arange(vals.numel(), device=vals.device) // E
-    keep = vals != 0
+    if stored:
+        keep = torch.zeros(vals.numel(), dtype=torch.bool,
+                           device=vals.device)
+        slots = sm.data_slots[sm.data_slots >= 0]
+        keep[torch.as_tensor(slots, device=vals.device)] = True
+    else:
+        keep = vals != 0
     rows, cols, vals = rows[keep], cols[keep], vals[keep]
     if sm.spill_rows is not None:
         rows = torch.cat([rows, sm.spill_rows])
@@ -174,7 +246,7 @@ def _sell_to_torch_csr(torch, sm):
     return coo.to_sparse_csr()
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=64,
                     help="cells per side of the main-path cube")
@@ -187,7 +259,11 @@ def main(argv=None):
     ap.add_argument("--n-solve", type=int, default=40,
                     help="cells per side of the P1 elasticity solve cube")
     ap.add_argument("--solve-clusters", type=int, default=128)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
 
     import numpy as np
     import torch
@@ -288,15 +364,30 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(0)
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bound,
-              lib_ms):  # appends to `kernels`; phases 4 and 5 call it too
+              lib_ms, lib_stored_ms=None, **more):
+        """Appends to `kernels` (phases 4 and 5 call it too).  The SELL
+        kernels have two library times: `lib_ms` over a CSR of the nonzero
+        values (the same function), `lib_stored_ms` over a CSR of every
+        stored entry (the same work as the kernel, less the padding).
+        `more` adds keys whose values are dicts of times (B2's with its
+        inputs out of L2, B4's at a stress shape)."""
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound[0], "bound_by": bound[1],
                         "library_ms": lib_ms})
+        stored = ""
+        if lib_stored_ms is not None:
+            kernels[-1]["library_stored_ms"] = lib_stored_ms
+            stored = f" library_stored_ms={lib_stored_ms:.5f}"
         print(f"  {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms={lib_ms:.5f} bound_ms={bound[0]:.5f} "
+              f"library_ms={lib_ms:.5f}{stored} bound_ms={bound[0]:.5f} "
               f"({bound[1]}) max_abs_err={err:.3e}", flush=True)
+        for key, val in more.items():
+            kernels[-1][key] = val
+            print(f"    {key}: " + " ".join(
+                f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in val.items()), flush=True)
 
     def hold_b1(where, idx, n_in, launches):
         """B1 against its plain version and the x[idx] yardstick."""
@@ -337,27 +428,42 @@ def main(argv=None):
         err = float((y_k - y_p).abs().max())
         _check(err <= 1e-6 * float(y_p.abs().max()), f"B2 error {err}{where}")
         csr = _sell_to_torch_csr(torch, Ac)
+        csr_st = _sell_to_torch_csr(torch, Ac, stored=True)
         xcol = x2d.reshape(-1)
-        y_lib = csr @ xcol
         n_rows = Ac.shape[0]
-        _check(float((y_lib[:n_rows] - y_p[:n_rows]).abs().max())
-               <= 1e-5 * float(y_p.abs().max()), f"B2 yardstick{where}")
+        for c in (csr, csr_st):
+            _check(float(((c @ xcol)[:n_rows] - y_p[:n_rows]).abs().max())
+                   <= 1e-5 * float(y_p.abs().max()), f"B2 yardstick{where}")
         slots = Ac.vals.numel()
         nnz_sell = int((Ac.vals != 0).sum())
         print(f"B2 shapes{where}: nchunks={Ac.vals.shape[0]} E={Ac.E} "
               f"K={Ac.K} nx2={nx2} rows={n_rows} nnz={Ac.nnz} "
-              f"stored_nonzeros={nnz_sell} slots={slots} spill="
+              f"slots={slots} stored_entries={int((Ac.data_slots >= 0).sum())}"
+              f" nonzero={nnz_sell} spill="
               f"{0 if Ac.spill_rows is None else Ac.spill_rows.numel()}")
+        # back to back the main path's 27 MB of planes stay in the L2; in
+        # the solve they come from HBM, so time them cold as well
+        def b2(v, p, b):
+            return sl.sell_spmv(v, p, b, x2d, Ac.E)
+
+        def mv(c):
+            return c @ xcol
+
+        l2_cold = {
+            "ms": _device_ms(torch, _cold_calls(b2, Ac.vals, Ac.pidx,
+                                                Ac.bids)),
+            "library_ms": _device_ms(torch, _cold_calls(mv, csr)),
+            "library_stored_ms": _device_ms(torch, _cold_calls(mv, csr_st))}
         entry("B2 sell_spmv" + where, "feddlib_tpu_torch/csrc/sell.cu",
               "feddlib_tpu/la/sell.py:354", counts["sell_spmv"], err,
-              _device_ms(torch, lambda: sl.sell_spmv(Ac.vals, Ac.pidx,
-                                                      Ac.bids, x2d, Ac.E)),
+              _device_ms(torch, lambda: b2(Ac.vals, Ac.pidx, Ac.bids)),
               _device_ms(torch, lambda: sl.sell_spmv_plain(
                   Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)),
               _bound(6 * slots + 4 * Ac.bids.numel() + 4 * x2d.numel()
                      + 4 * (slots // Ac.E), 2 * nnz_sell, PEAK_F32_S),
-              _device_ms(torch, lambda: csr @ xcol))
-        del csr
+              _device_ms(torch, lambda: mv(csr)),
+              _device_ms(torch, lambda: mv(csr_st)), l2_cold=l2_cold)
+        del csr, csr_st
 
         # B3: the f32 level-1 inverse
         inv = prec.level1.inv
@@ -379,6 +485,30 @@ def main(argv=None):
               _device_ms(torch, lambda: torch.bmm(inv, xs.unsqueeze(-1))))
 
     hold_b123("", db, split, prec, counts2)
+
+    # B4 at a store beyond the 50 MB L2, a stress shape off every path:
+    # the main path's level-1 inverse as bf16 (written in phase 4 into the
+    # entry of B4, whose launches are the bench chain's)
+    inv = prec.level1.inv.to(torch.bfloat16)
+    P, R, W = inv.shape
+    xs = torch.randn(P, W, generator=g, device=dev)
+    y_k = dk.dense_block_mv_lowp(inv, xs)
+    y_p = dk.dense_block_mv_lowp_plain(inv, xs)
+    err = float((y_k - y_p).abs().max())
+    _check(err <= 1e-5 * float(y_p.abs().max()), f"B4 error {err} (L2)")
+    xs_bf = xs.to(torch.bfloat16).unsqueeze(-1)
+    print(f"B4 shapes (main-path level-1 inverse as bf16): P={P} R={R} "
+          f"W={W} bytes={inv.numel() * 2}")
+    b4_beyond_l2 = {
+        "shape": [P, R, W], "max_abs_err": err,
+        "ms": _device_ms(torch, lambda: dk.dense_block_mv_lowp(inv, xs)),
+        "plain_ms": _device_ms(
+            torch, lambda: dk.dense_block_mv_lowp_plain(inv, xs),
+            samples=20, calls=2),
+        "bound_ms": _bound(2 * P * R * W + 4 * P * W + 4 * P * R,
+                           2 * P * R * W, PEAK_BF16_S)[0],
+        "library_ms": _device_ms(torch, lambda: torch.bmm(inv, xs_bf))}
+    del inv, xs, xs_bf, y_k, y_p
     _phase("3 kernels (main-path shapes)", t0)
 
     # free phase 2 before phase 4 builds its own operators
@@ -389,33 +519,14 @@ def main(argv=None):
     # -- phase 4: bench-chain configuration -----------------------------------
     t0 = time.perf_counter()
     from feddlib_tpu_torch.fe.domain import Domain
-    from feddlib_tpu_torch.fe.host_assembly import host_poisson_dirichlet
-    from feddlib_tpu_torch.la.csr import CsrMatrix
-    from feddlib_tpu_torch.la.dense_blocks import DenseBlockSpMV
-    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
-    from feddlib_tpu_torch.mesh.partition import (MeshPartition,
-                                                   partition_points)
-    from feddlib_tpu_torch.precond.cluster_coarse import \
-        PaddedTwoLevelSchwarz
     from feddlib_tpu_torch.solvers.krylov import solve
     from feddlib_tpu_torch.solvers.refinement import iterative_refinement
 
-    dom = Domain.structured(3, args.n_bench, device=dev)
-    Kb_sp, bb_np = host_poisson_dirichlet(dom)
-    Kb = CsrMatrix.from_scipy(Kb_sp, device=dev)
+    bc = _bench_chain(torch, np, args.n_bench, args.bench_clusters, dev)
+    Kb_sp, bb_np, Kb, db, Ap, prec = (bc.K_sp, bc.b_np, bc.K, bc.db, bc.Ap,
+                                      bc.prec)
+    A_fn, A_ops, M_fn, M_ops = bc.A_fn, bc.A_ops, bc.M_fn, bc.M_ops
     bb = torch.as_tensor(bb_np, device=dev)
-    part = MeshPartition(dom.mesh, args.bench_clusters)
-    cluster = partition_points(dom.mesh.points, args.bench_clusters)
-    db = DenseBlockSpMV.from_csr(Kb, cluster, dtype=torch.float32)
-    Ap = PaddedSplitSpMV(Kb, db, dtype=torch.float32)
-    A_fn, A_ops = Ap.operator()
-    mask = np.asarray(dom.mesh.point_flags) == 1
-    prec = PaddedTwoLevelSchwarz(Kb, part, db, dirichlet_mask=mask,
-                                 level_combination="Additive",
-                                 l1_store_dtype=torch.bfloat16,
-                                 coarse_store_dtype=torch.bfloat16,
-                                 A_padded_op=(A_fn, A_ops))
-    M_fn, M_ops = prec.padded_operator()
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     xp = torch.ones(db.P * db.R, device=dev)
@@ -471,12 +582,13 @@ def main(argv=None):
           _device_ms(torch, lambda: dk.dense_block_mv_lowp_plain(inv, xs)),
           _bound(2 * P * R * W + 4 * P * W + 4 * P * R, 2 * P * R * W,
                  PEAK_BF16_S),
-          _device_ms(torch, lambda: torch.bmm(inv, xs_bf)))
+          _device_ms(torch, lambda: torch.bmm(inv, xs_bf)),
+          stress_beyond_l2=b4_beyond_l2)
     torch.cuda.synchronize()
     _phase("4 bench chain", t0)
 
-    del Kb, Kb_sp, bb, db, Ap, prec, inv, xs, xs_bf, y_k, y_p, res, xp, dom
-    del A_fn, A_ops, M_fn, M_ops, part
+    del Kb, Kb_sp, bb, db, Ap, prec, inv, xs, xs_bf, y_k, y_p, res, xp, bc
+    del A_fn, A_ops, M_fn, M_ops
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -583,10 +695,11 @@ def main(argv=None):
     err = float((y_k - y_p).abs().max())
     _check(err <= 1e-5 * float(y_p.abs().max()), f"B5 error {err}")
     csr = _block_sell_to_torch_csr(torch, bs)
+    csr_st = _block_sell_to_torch_csr(torch, bs, stored=True)
     xcol = x2d.reshape(-1)
-    y_lib = csr @ xcol
-    _check(float((y_lib - y_p.reshape(-1)).abs().max())
-           <= 1e-5 * float(y_p.abs().max()), "B5 yardstick")
+    for c in (csr, csr_st):
+        _check(float((c @ xcol - y_p.reshape(-1)).abs().max())
+               <= 1e-5 * float(y_p.abs().max()), "B5 yardstick")
     slots = lay.pidx.numel()
     stored = int((bs.vals != 0).sum())
     print(f"B5 shapes: d={d5} nchunks={bs.vals.shape[0]} E={E5} K={lay.K} "
@@ -608,7 +721,8 @@ def main(argv=None):
           _bound(4 * bs.vals.numel() + 2 * slots + 4 * lay.bids.numel()
                  + 4 * x2d.numel() + 4 * y_k.numel(), 2 * stored,
                  PEAK_F32_S),
-          _device_ms(torch, lambda: csr @ xcol))
+          _device_ms(torch, lambda: csr @ xcol),
+          _device_ms(torch, lambda: csr_st @ xcol))
     print(f"  B5 bound from the stored nonzeros alone: {b_nnz[0]:.5f} ms "
           f"({b_nnz[1]}); kernel at {b_nnz[0] / kernels[-1]['ms']:.3f} of "
           f"it, at {kernels[-1]['bound_ms'] / kernels[-1]['ms']:.3f} of the "
@@ -617,7 +731,7 @@ def main(argv=None):
     _phase("5 elasticity operator", t0)
 
     del prob, A, A_sp, F, bs, lay, fn5, ops5, x5, y5, res5, b5, dinv, diag
-    del csr, xcol, y_lib, y_k, y_p, x2d, dom, ref5
+    del csr, csr_st, xcol, y_k, y_p, x2d, dom, ref5
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -11,11 +11,23 @@
 // Bound on the H100: bytes.  The [P, R, W] block stream is read exactly once
 // per apply (4 or 2 B per element, 2 flops each); xs and y are small.  At the
 // padded-cluster solve's shapes the f32 stream is about a gigabyte, far above
-// the 50 MB L2, so the kernel is a device-memory stream.  Design: one block
-// of 8 warps per tile of 64 rows of one cluster; x[p] is staged once in
-// shared memory; each warp walks its rows with 16-byte loads (4 f32 or 8
-// bf16 per lane, neighbouring lanes on neighbouring addresses) and reduces
-// the row with warp shuffles.
+// the 50 MB L2, so the kernel is a device-memory stream.
+//
+// f32 design: one block of 8 warps per tile of 64 rows of one cluster; x[p]
+// is staged once in shared memory; each warp walks its rows with 16-byte
+// loads (4 f32 per lane, neighbouring lanes on neighbouring addresses) and
+// reduces the row with warp shuffles.
+//
+// bf16 design (W % 8 == 0, aligned store): a row one warp walked alone kept
+// only one or two 16-byte loads per lane in flight behind the previous row's
+// shuffles, and 64-row tiles left a tail tile at R = 136.  Now the grid has
+// no more CTAs than the card holds at once, each owning whole slabs of rows
+// of one cluster; each warp is software-pipelined, loading its next step of
+// up to 4 rows (or 8 pieces a lane of one long row) while it multiplies the
+// current one, and x[p] sits in shared memory as bf16 (x is rounded to bf16
+// first anyway), so a lane's 8 x values are one conflict-free 16-byte load
+// and widening to f32 is a shift.  Any other W or alignment takes the
+// general kernel (lanes over elements).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,10 +82,11 @@ __global__ void dense_gemv_f32_kernel(const float* __restrict__ blocks,
   }
 }
 
-__global__ void dense_gemv_bf16_kernel(const __nv_bfloat16* __restrict__ blocks,
-                                       const float* __restrict__ xs,
-                                       float* __restrict__ y, int P, int R,
-                                       int W, int tiles, bool vec) {
+// B4, the general case (any W, any alignment): lanes over the elements of
+// a row, one row after another per warp, x in shared memory as f32.
+__global__ void dense_gemv_bf16_any_kernel(
+    const __nv_bfloat16* __restrict__ blocks, const float* __restrict__ xs,
+    float* __restrict__ y, int R, int W, int tiles) {
   extern __shared__ float4 smem4[];
   float* xsh = reinterpret_cast<float*>(smem4);
   const int p = blockIdx.x / tiles;
@@ -91,42 +104,204 @@ __global__ void dense_gemv_bf16_kernel(const __nv_bfloat16* __restrict__ blocks,
     if (r >= R) break;
     const __nv_bfloat16* row = blocks + ((size_t)p * R + r) * W;
     float acc = 0.0f;
-    if (vec) {
-      const uint4* row8 = reinterpret_cast<const uint4*>(row);
-      const int W8 = W >> 3;
-      for (int i = lane; i < W8; i += 32) {
-        const uint4 u = __ldg(row8 + i);
-        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-        const float* xb = xsh + 8 * i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc = fmaf(__bfloat162float(h[j]), xb[j], acc);
-      }
-    } else {
-      for (int i = lane; i < W; i += 32)
-        acc = fmaf(__bfloat162float(row[i]), xsh[i], acc);
-    }
+    for (int i = lane; i < W; i += 32)
+      acc = fmaf(__bfloat162float(row[i]), xsh[i], acc);
     acc = warp_sum(acc);
     if (lane == 0) y[(size_t)p * R + r] = acc;
   }
 }
 
-template <typename Kernel, typename T>
-int launch(Kernel kernel, const T* blocks, const float* xs, float* y, int P,
-           int R, int W, int vec_elems, cudaStream_t stream) {
+// Eight bf16 products of two 16-byte pieces added to acc in f32; a bf16 is
+// the upper half of an f32, so widening is a shift or a mask.
+__device__ __forceinline__ float dot_bf16x8(uint4 a, uint4 b, float acc) {
+  const unsigned hi = 0xffff0000u;
+  acc = fmaf(__uint_as_float(a.x << 16), __uint_as_float(b.x << 16), acc);
+  acc = fmaf(__uint_as_float(a.x & hi), __uint_as_float(b.x & hi), acc);
+  acc = fmaf(__uint_as_float(a.y << 16), __uint_as_float(b.y << 16), acc);
+  acc = fmaf(__uint_as_float(a.y & hi), __uint_as_float(b.y & hi), acc);
+  acc = fmaf(__uint_as_float(a.z << 16), __uint_as_float(b.z << 16), acc);
+  acc = fmaf(__uint_as_float(a.z & hi), __uint_as_float(b.z & hi), acc);
+  acc = fmaf(__uint_as_float(a.w << 16), __uint_as_float(b.w << 16), acc);
+  acc = fmaf(__uint_as_float(a.w & hi), __uint_as_float(b.w & hi), acc);
+  return acc;
+}
+
+template <int G, int TR>
+__device__ __forceinline__ void load_rows(uint4 (&u)[G][TR],
+                                          const uint4* __restrict__ bp,
+                                          int r0, int r_hi, int base,
+                                          int W8) {
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < TR; ++j) {
+      const int i = base + 32 * j;
+      u[g][j] = (r0 + g < r_hi && i < W8)
+                    ? __ldg(bp + (size_t)(r0 + g) * W8 + i)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// B4, W % 8 == 0 and a 16-byte aligned store: a row is W/8 whole 16-byte
+// pieces.  A CTA owns rows [r_lo, r_hi) of cluster p and stages x[p] in
+// shared memory as bf16, so a lane reads the 8 x values of its piece with
+// one conflict-free 16-byte load.  Each warp owns a contiguous run of those
+// rows and walks it in steps of G rows by 32 * TR pieces (G * TR <= 4, or
+// one row of TR <= 8 pieces a lane): it loads the next step into a second
+// set of registers before it multiplies the current one, so every warp
+// keeps a step in flight from the first load (issued before x is staged)
+// to the last.  A row ends with a shuffle reduction and one store.
+template <int TR>
+__global__ void __launch_bounds__(kWarps * 32)
+dense_gemv_bf16_vec_kernel(const uint4* __restrict__ blocks,
+                           const float* __restrict__ xs,
+                           float* __restrict__ y, int R, int W,
+                           int rows_per_cta, int slabs) {
+  constexpr int G = TR >= 4 ? 1 : 4 / TR;
+  extern __shared__ uint4 xh4[];
+  __nv_bfloat16* xh = reinterpret_cast<__nv_bfloat16*>(xh4);
+  const int p = blockIdx.x / slabs;
+  const int r_lo = (blockIdx.x % slabs) * rows_per_cta;
+  const int r_hi = min(R, r_lo + rows_per_cta);
+  const int W8 = W >> 3;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int per_warp = (r_hi - r_lo + kWarps - 1) / kWarps;
+  int r0 = r_lo + warp * per_warp;   // the step: rows r0 .. r0 + G - 1,
+  int pb = 0;                        // pieces pb + lane + 32 * j
+  const int w_hi = min(r_hi, r0 + per_warp);
+  const uint4* bp = blocks + (size_t)p * R * W8;
+  float* yp = y + (size_t)p * R;
+  uint4 cur[G][TR], nxt[G][TR];
+  load_rows<G, TR>(cur, bp, r0, w_hi, pb + lane, W8);
+  const float* xp = xs + (size_t)p * W;
+  // round to nearest even, as the TPU kernel's xs.astype(blocks.dtype)
+  for (int i = threadIdx.x; i < W; i += blockDim.x)
+    xh[i] = __float2bfloat16(xp[i]);
+  __syncthreads();
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.0f;
+  while (r0 < w_hi) {   // the same trips for every lane of the warp
+    int r1 = r0, pb1 = pb + 32 * TR;
+    if (pb1 >= W8) {
+      pb1 = 0;
+      r1 += G;
+    }
+    load_rows<G, TR>(nxt, bp, r1, w_hi, pb1 + lane, W8);
+#pragma unroll
+    for (int j = 0; j < TR; ++j) {
+      const int i = pb + lane + 32 * j;
+      if (i < W8) {
+        const uint4 xv = xh4[i];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          acc[g] = dot_bf16x8(cur[g][j], xv, acc[g]);
+      }
+    }
+    if (pb1 == 0) {   // the G rows are complete
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          acc[g] += __shfl_xor_sync(0xffffffffu, acc[g], off);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (lane == 0 && r0 + g < w_hi) yp[r0 + g] = acc[g];
+        acc[g] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < TR; ++j) cur[g][j] = nxt[g][j];
+    r0 = r1;
+    pb = pb1;
+  }
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int TR>
+int launch_bf16_vec(const __nv_bfloat16* blocks, const float* xs, float* y,
+                    int P, int R, int W, cudaStream_t stream) {
+  const auto kernel = dense_gemv_bf16_vec_kernel<TR>;
+  const size_t smem = ((size_t)W * 2 + 15) / 16 * 16;
+  int e = set_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
+  // as many CTAs as are resident on the card, and no more than one per
+  // cluster unless there are fewer clusters than that: no tail tiles
+  static size_t cached_smem = (size_t)-1;
+  static int per_sm = 1;
+  if (cached_smem != smem) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kWarps * 32, smem) != cudaSuccess ||
+        per_sm < 1)
+      per_sm = 1;
+    cached_smem = smem;
+  }
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long target = (long long)(sms > 0 ? sms : 1) * per_sm;
+  long long slabs = target / P;
+  if (slabs > (R + kWarps - 1) / kWarps) slabs = (R + kWarps - 1) / kWarps;
+  if (slabs < 1) slabs = 1;
+  const int rows_per_cta = (int)((R + slabs - 1) / slabs);
+  slabs = (R + rows_per_cta - 1) / rows_per_cta;
+  const long long grid = (long long)P * slabs;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)grid, kWarps * 32, smem, stream>>>(
+      reinterpret_cast<const uint4*>(blocks), xs, y, R, W, rows_per_cta,
+      (int)slabs);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const __nv_bfloat16* blocks, const float* xs, float* y,
+                int P, int R, int W, cudaStream_t stream) {
+  if (P <= 0 || R <= 0) return (int)cudaGetLastError();
+  if (W % 8 == 0 && W > 0 &&
+      reinterpret_cast<uintptr_t>(blocks) % 16 == 0) {
+    const int trips = (W / 8 + 31) / 32;
+    switch (trips < 8 ? trips : 8) {
+      case 1: return launch_bf16_vec<1>(blocks, xs, y, P, R, W, stream);
+      case 2: return launch_bf16_vec<2>(blocks, xs, y, P, R, W, stream);
+      case 3: return launch_bf16_vec<3>(blocks, xs, y, P, R, W, stream);
+      case 4: return launch_bf16_vec<4>(blocks, xs, y, P, R, W, stream);
+      case 5: return launch_bf16_vec<5>(blocks, xs, y, P, R, W, stream);
+      case 6: return launch_bf16_vec<6>(blocks, xs, y, P, R, W, stream);
+      case 7: return launch_bf16_vec<7>(blocks, xs, y, P, R, W, stream);
+      default: return launch_bf16_vec<8>(blocks, xs, y, P, R, W, stream);
+    }
+  }
+  const size_t smem = ((size_t)W * sizeof(float) + 15) / 16 * 16;
+  int e = set_smem((const void*)dense_gemv_bf16_any_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = (R + kRowsPerBlock - 1) / kRowsPerBlock;
+  const long long grid = (long long)P * tiles;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  dense_gemv_bf16_any_kernel<<<(unsigned)grid, kWarps * 32, smem, stream>>>(
+      blocks, xs, y, R, W, tiles);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const float* blocks, const float* xs, float* y, int P, int R,
+               int W, cudaStream_t stream) {
   if (P <= 0 || R <= 0) return (int)cudaGetLastError();
   const size_t smem = ((size_t)W * sizeof(float) + 15) / 16 * 16;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const bool vec = (W % vec_elems == 0) &&
+  int e = set_smem((const void*)dense_gemv_f32_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const bool vec = (W % 4 == 0) &&
                    (reinterpret_cast<uintptr_t>(blocks) % 16 == 0);
   const int tiles = (R + kRowsPerBlock - 1) / kRowsPerBlock;
   const long long grid = (long long)P * tiles;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)grid, kWarps * 32, smem, stream>>>(blocks, xs, y, P, R,
-                                                        W, tiles, vec);
+  dense_gemv_f32_kernel<<<(unsigned)grid, kWarps * 32, smem, stream>>>(
+      blocks, xs, y, P, R, W, tiles, vec);
   return (int)cudaGetLastError();
 }
 
@@ -135,11 +310,11 @@ int launch(Kernel kernel, const T* blocks, const float* xs, float* y, int P,
 extern "C" int fedd_dense_gemv_f32(const float* blocks, const float* xs,
                                    float* y, int P, int R, int W,
                                    cudaStream_t stream) {
-  return launch(dense_gemv_f32_kernel, blocks, xs, y, P, R, W, 4, stream);
+  return launch_f32(blocks, xs, y, P, R, W, stream);
 }
 
 extern "C" int fedd_dense_gemv_bf16(const __nv_bfloat16* blocks,
                                     const float* xs, float* y, int P, int R,
                                     int W, cudaStream_t stream) {
-  return launch(dense_gemv_bf16_kernel, blocks, xs, y, P, R, W, 8, stream);
+  return launch_bf16(blocks, xs, y, P, R, W, stream);
 }

@@ -70,22 +70,24 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _source_hash() -> str:
+def _source_hash(csrc_dir: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(CSRC_DIR)):
+    for name in sorted(os.listdir(csrc_dir)):
         if name.endswith((".cu", ".cuh")):
             h.update(name.encode())
-            with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            with open(os.path.join(csrc_dir, name), "rb") as f:
                 h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
+def build(csrc_dir: str = CSRC_DIR) -> str:
     """Compile the kernels (one nvcc per source, in parallel) and link
     them into one library; returns its path.  Reuses an existing build of
-    the same sources."""
+    the same sources.  `csrc_dir` builds another version of the sources
+    (with the same C entries), as `kernel_ab.py` does to compare two of
+    them on one card."""
     global build_log
-    out_dir = os.path.join(BUILD_DIR, _source_hash())
+    out_dir = os.path.join(BUILD_DIR, _source_hash(csrc_dir))
     lib_path = os.path.join(out_dir, "libfeddlib_kernels.so")
     if os.path.exists(lib_path):
         return lib_path
@@ -94,7 +96,7 @@ def build() -> str:
     procs = []
     for src in SOURCES:
         obj = os.path.join(out_dir, src.replace(".cu", f".{os.getpid()}.o"))
-        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, src),
+        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(csrc_dir, src),
                "-o", obj]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -124,18 +126,31 @@ def build() -> str:
     return lib_path
 
 
+def load(path: str) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entries."""
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = handle
+            _lib = load(build())
     return _lib
+
+
+def use(handle: ctypes.CDLL) -> None:
+    """Make the wrappers launch from `handle`, a library from
+    `load(build(csrc_dir))`, from now on."""
+    global _lib
+    with _lock:
+        _lib = handle
 
 
 def require_hopper(*tensors: torch.Tensor) -> None:

@@ -28,6 +28,20 @@ def _jacobi_op(ops, r):
     return ops[0] * r
 
 
+def point_cluster_operators(A, points, n_clusters: int, dofs_per_node: int):
+    """The f32 padded operators of the mixed-precision solve of a one-field
+    problem: count-median point RCB clusters (balanced ±1) of the mesh
+    `points`, NodeWise dof order (dof = node*d + c).  Returns the
+    `DenseBlockSpMV` and the `PaddedSplitSpMV` built on its clusters."""
+    from feddlib_tpu_torch.la.dense_blocks import DenseBlockSpMV
+    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
+    from feddlib_tpu_torch.mesh.partition import partition_points
+
+    cluster = np.repeat(partition_points(points, n_clusters), dofs_per_node)
+    db32 = DenseBlockSpMV.from_csr(A, cluster, dtype=torch.float32)
+    return db32, PaddedSplitSpMV(A, db32, dtype=torch.float32)
+
+
 class Preconditioner:
     """Preconditioner factory bound to a problem: builds once, reusable
     across solves, rebuilt on request (reassembly).  Ported: None / Id /
@@ -276,15 +290,8 @@ class LinearSolver:
                   if getattr(problem, "variables", None) else 0)
             if len(problem.domains) == 1 and d0 > 0 \
                     and A.shape[0] == n_pts * d0:
-                # count-median point RCB (balanced ±1) for the padded row
-                # clusters; NodeWise dof order: dof = node*d + c
-                from feddlib_tpu_torch.mesh.partition import partition_points
-
-                node_cluster = partition_points(dom0.mesh.points,
-                                                n_clusters)
-                cluster = np.repeat(node_cluster, d0)
-                db32 = DenseBlockSpMV.from_csr(A, cluster,
-                                               dtype=torch.float32)
+                db32, sell32 = point_cluster_operators(
+                    A, dom0.mesh.points, n_clusters, d0)
             else:
                 cluster = np.zeros(A.shape[0], dtype=np.int32)
                 for p, ix in enumerate(dof_map.partition_indices):
@@ -292,7 +299,7 @@ class LinearSolver:
                 db32 = DenseBlockSpMV.from_csr(A, cluster,
                                                dtype=torch.float32,
                                                balance=True)
-            sell32 = PaddedSplitSpMV(A, db32, dtype=torch.float32)
+                sell32 = PaddedSplitSpMV(A, db32, dtype=torch.float32)
             if two_level and len(problem.domains) == 1:
                 from feddlib_tpu_torch.precond.cluster_coarse import (
                     PaddedTwoLevelSchwarz)

@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Time two or more builds of the port's CUDA kernels on one card, in turns.
+
+Each build is a directory of CUDA sources with the C entries of
+feddlib_tpu_torch/csrc/, for example an older commit's csrc/ unpacked in a
+git-ignored directory.  At the shapes of chip_smoke.py's default run
+(its own helpers build the operators), it times:
+  - B2 on the padded SELL operator of the Laplace main path and of the P1
+    elasticity solve, back to back and with the planes out of L2;
+  - B4 and B3 at the main path's level-1 shape (random stores: a GEMV's
+    time does not depend on the values), B4 also on the bench chain's bf16
+    level-1 inverse;
+  - the bench chain's M(A(x)) apply;
+with the builds in the order A B .. B A, each a median of calls queued
+behind a spin kernel (chip_smoke._device_ms), and beside them the one-call
+PyTorch yardsticks and the byte bounds.  Each build's output is also held
+against the plain version.  Run from the repository root on the card:
+
+    git archive eace971 feddlib_tpu_torch/csrc | tar -x -C .scratch/parent
+    python3 kernel_ab.py \\
+        --build parent=.scratch/parent/feddlib_tpu_torch/csrc --build change
+
+--build NAME[=DIR]; DIR defaults to feddlib_tpu_torch/csrc.
+Prints one line per time and writes them all to chiprun_out/kernel_ab.json.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import chip_smoke as cs  # noqa: E402
+from feddlib_tpu_torch.fe.domain import Domain  # noqa: E402
+from feddlib_tpu_torch.la import _cuda  # noqa: E402
+from feddlib_tpu_torch.la import dense_kernels as dk  # noqa: E402
+from feddlib_tpu_torch.la import sell as sl  # noqa: E402
+from feddlib_tpu_torch.solvers import linear  # noqa: E402
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--build", action="append", required=True,
+                    help="NAME[=DIR]")
+    args = ap.parse_args(argv)
+    size = cs._parser().parse_args([])
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device visible", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip() or torch.cuda.get_device_name(0)
+    print(card, flush=True)
+
+    builds = []
+    for spec in args.build:
+        name, _, path = spec.partition("=")
+        path = os.path.abspath(path) if path else _cuda.CSRC_DIR
+        builds.append((name, _cuda.load(_cuda.build(path))))
+        print(f"built {name} from {path}", flush=True)
+    order = builds + builds[::-1]
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    def record(kernel, shape, build, ms, **extra):
+        rows.append({"kernel": kernel, "shape": shape, "build": build,
+                     "ms": ms, **extra})
+        more = " ".join(f"{k}={v}" for k, v in extra.items())
+        print(f"  {kernel} [{shape}] {build}: {ms:.5f} ms {more}",
+              flush=True)
+
+    def turns(kernel, shape, fn, check=None):
+        """fn() under each build in the order A B .. B A; `fn` is one call
+        or a list of calls taken in turn (cs._cold_calls)."""
+        for name, lib in order:
+            _cuda.use(lib)
+            first = fn[0] if isinstance(fn, list) else fn
+            extra = {"rel_err": check(first())} if check else {}
+            record(kernel, shape, name, cs._device_ms(torch, fn), **extra)
+
+    def rel(y, y0):
+        return float((y - y0).abs().max() / y0.abs().max())
+
+    def gemv_turns(blocks, xs):
+        P, R, W = blocks.shape
+        if blocks.dtype == torch.bfloat16:
+            kernel, fn, plain = ("B4", dk.dense_block_mv_lowp,
+                                 dk.dense_block_mv_lowp_plain)
+            xs_b = xs.to(torch.bfloat16).unsqueeze(-1)
+        else:
+            kernel, fn, plain = ("B3", dk.dense_block_mv,
+                                 dk.dense_block_mv_plain)
+            xs_b = xs.unsqueeze(-1)
+        shape = f"[{P}, {R}, {W}] {str(blocks.dtype).split('.')[-1]}"
+        y0 = plain(blocks, xs)
+        turns(kernel, shape, lambda: fn(blocks, xs), lambda y: rel(y, y0))
+        record("torch.bmm", shape, "library",
+               cs._device_ms(torch, lambda: torch.bmm(blocks, xs_b)))
+        esz = blocks.element_size()
+        bound = cs._bound(esz * P * R * W + 4 * P * W + 4 * P * R,
+                          2 * P * R * W,
+                          cs.PEAK_BF16_S if esz == 2 else cs.PEAK_F32_S)
+        record("bound", shape, bound[1], bound[0])
+
+    # -- B2 at the main path's and the elasticity solve's shapes; B4 and B3
+    # at the main path's level-1 shape --------------------------------------
+    ops = (("main path", lambda: cs._laplace(torch, size.n, size.clusters,
+                                             dev), size.clusters),
+           ("elasticity solve", lambda: cs._linelas(
+               torch, Domain.structured(3, size.n_solve, device=dev), {},
+               dev), size.solve_clusters))
+    for where, make, clusters in ops:
+        prob = make()
+        A = prob.bc_system().get_block(0, 0)
+        mesh = prob.domains[0].mesh
+        db, split = linear.point_cluster_operators(
+            A, mesh.points, clusters, A.shape[0] // mesh.n_points)
+        Ac = split.Ac
+        del prob, A
+        nx2 = (Ac.shape[1] + 127) // 128
+        x2d = torch.randn(nx2, 128, generator=g, device=dev)
+        slots = Ac.vals.numel()
+        stored = int((Ac.data_slots >= 0).sum())
+        nonzero = int((Ac.vals != 0).sum())
+        shape = (f"{where}: nchunks={Ac.vals.shape[0]} E={Ac.E} K={Ac.K} "
+                 f"slots={slots} stored={stored} nonzero={nonzero}")
+        y0 = sl.sell_spmv_plain(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
+
+        def b2(v, p, b):
+            return sl.sell_spmv(v, p, b, x2d, Ac.E)
+
+        def mv(c):
+            return c @ xcol
+
+        turns("B2", shape, lambda: b2(Ac.vals, Ac.pidx, Ac.bids),
+              lambda y: rel(y, y0))
+        turns("B2 L2 cold", shape,
+              cs._cold_calls(b2, Ac.vals, Ac.pidx, Ac.bids),
+              lambda y: rel(y, y0))
+        xcol = x2d.reshape(-1)
+        for kind, st in (("nonzero", False), ("stored", True)):
+            csr = cs._sell_to_torch_csr(torch, Ac, stored=st)
+            record("torch CSR", shape, kind,
+                   cs._device_ms(torch, lambda: mv(csr)))
+            record("torch CSR L2 cold", shape, kind,
+                   cs._device_ms(torch, cs._cold_calls(mv, csr)))
+            del csr
+        bound = cs._bound(6 * slots + 4 * Ac.bids.numel() + 4 * x2d.numel()
+                          + 4 * (slots // Ac.E), 2 * nonzero, cs.PEAK_F32_S)
+        record("bound", shape, bound[1], bound[0])
+        del Ac, split, x2d, y0
+        torch.cuda.empty_cache()
+        if where == "main path":
+            P, R, W = db.P, db.R, db.R + db.G
+            for dt in (torch.bfloat16, torch.float32):
+                gemv_turns(
+                    torch.randn(P, R, W, generator=g, device=dev).to(dt),
+                    torch.randn(P, W, generator=g, device=dev))
+                torch.cuda.empty_cache()
+        del db
+
+    # -- the bench chain: B4 on its bf16 level-1 inverse, M(A(x)) ------------
+    bc = cs._bench_chain(torch, np, size.n_bench, size.bench_clusters, dev)
+    inv = bc.prec.level1.inv
+    gemv_turns(inv, torch.randn(inv.shape[0], inv.shape[2], generator=g,
+                                device=dev))
+    xp = torch.ones(bc.db.P * bc.db.R, device=dev)
+    turns("M(A(x))", f"bench chain n={size.n_bench}",
+          lambda: bc.M_fn(bc.M_ops, bc.A_fn(bc.A_ops, xp)))
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:
+        json.dump({"card": card, "rows": rows}, f, indent=1)
+    print(json.dumps({"card": card, "rows": len(rows)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -63,6 +63,96 @@ def test_b2_sell_on_card(hopper, n, K):
     assert _rel(A.matvec(x).double(), ref) < 1e-5
 
 
+def _random_sell(nchunks, E, K, nx2, seed, device, offset=0):
+    """Random SELL planes: every slot reads some column of K random windows.
+    `offset` > 0 starts vals and pidx that many elements into their buffers,
+    so their data is not 16/8-byte aligned."""
+    rng = np.random.default_rng(seed)
+    n = nchunks * 8 * 128
+    v = torch.as_tensor(rng.standard_normal(offset + n).astype(np.float32),
+                        device=device)
+    q = torch.as_tensor(rng.integers(0, K * 128, offset + n).astype(np.int16),
+                        device=device)
+    vals = v[offset:].view(nchunks, 8, 128)
+    pidx = q[offset:].view(nchunks, 8, 128)
+    bids = torch.as_tensor(rng.integers(0, nx2, (nchunks, K)).astype(
+        np.int32), device=device)
+    x2d = torch.as_tensor(rng.standard_normal((nx2, 128)).astype(np.float32),
+                          device=device)
+    return vals, pidx, bids, x2d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 3, 16])
+@pytest.mark.parametrize("E", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_b2_sell_every_E_and_K_on_card(hopper, E, K):
+    vals, pidx, bids, x2d = _random_sell(37, E, K, 50, E * 100 + K, hopper)
+    before = _cuda.launch_counts["sell_spmv"]
+    y = sell.sell_spmv(vals, pidx, bids, x2d, E)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["sell_spmv"] == before + 1
+    y0 = sell.sell_spmv_plain(vals, pidx, bids, x2d, E)
+    assert y.shape == y0.shape == (37 * 1024 // E,)
+    assert _rel(y, y0) < 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [2, 16])
+def test_b2_sell_unaligned_planes_on_card(hopper, E):
+    vals, pidx, bids, x2d = _random_sell(300, E, 5, 40, E, hopper, offset=1)
+    assert vals.is_contiguous() and vals.data_ptr() % 16 != 0
+    y = sell.sell_spmv(vals, pidx, bids, x2d, E)
+    assert _rel(y, sell.sell_spmv_plain(vals, pidx, bids, x2d, E)) < 1e-6
+
+
+def _long_sell_matrix(n_chunks, E, seed):
+    """Random banded CSR with E-slot rows filling `n_chunks` chunks: rows of
+    1-3 entries, every 997th row 12 long, so that it spills past E = 8."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    n = n_chunks * 8 * (128 // E) - 5
+    lens = rng.integers(1, 4, n)
+    lens[::997] = 12
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.clip(rows + rng.integers(-200, 201, rows.size), 0, n - 1)
+    A = sps.csr_matrix((rng.standard_normal(rows.size), (rows, cols)),
+                       shape=(n, n))
+    A.sum_duplicates()
+    A.sort_indices()
+    return A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["20,000 chunks", "Laplace, K = 1"])
+def test_b2_sell_many_chunks_spill_with_data_on_card(hopper, case):
+    """More chunks than the persistent grid holds CTAs, rows that spill to
+    the COO tail, and a with_data refill, against scipy in f64."""
+    if case == "20,000 chunks":
+        A = _long_sell_matrix(20_000, 8, seed=3)
+        S = sell.SellMatrix.from_csr(A, dtype=torch.float32, E=8,
+                                     device=hopper)
+        assert S.vals.shape[0] >= 20_000
+    else:
+        A, _ = host_poisson_dirichlet(Domain.structured(3, 12, device="cpu"))
+        S = sell.SellMatrix.from_csr(A, dtype=torch.float32, K=1,
+                                     device=hopper)
+    assert S.spill_rows is not None
+    nx2 = (A.shape[1] + 127) // 128
+    x2d = torch.randn(nx2, 128, device=hopper)
+    before = _cuda.launch_counts["sell_spmv"]
+    y = sell.sell_spmv(S.vals, S.pidx, S.bids, x2d, S.E)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["sell_spmv"] == before + 1
+    assert _rel(y, sell.sell_spmv_plain(S.vals, S.pidx, S.bids, x2d, S.E)) \
+        < 1e-6
+    x = torch.randn(A.shape[1], device=hopper)
+    ref = torch.as_tensor(A @ x.cpu().double().numpy(), device=hopper)
+    assert _rel(S.matvec(x).double(), ref) < 1e-5
+    S2 = S.with_data(torch.as_tensor(A.data * 2.0, device=hopper))
+    assert _rel(S2.matvec(x).double(), 2.0 * ref) < 1e-5
+
+
 def _block_matrix(nn, d, per_row, seed):
     """Random d x d node-blocked CSR: `per_row` node columns within a band
     around each node row."""
@@ -173,6 +263,44 @@ def test_b3_b4_gemv_on_card(hopper, P, R, W):
     assert _rel(dk.dense_block_mv_lowp(bb, x),
                 dk.dense_block_mv_lowp_plain(bb, x)) < 1e-5
     torch.cuda.synchronize()
+
+
+def _hold_b4(blocks, xs):
+    before = _cuda.launch_counts["dense_gemv_bf16"]
+    y = dk.dense_block_mv_lowp(blocks, xs)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["dense_gemv_bf16"] == before + 1
+    y0 = dk.dense_block_mv_lowp_plain(blocks, xs)
+    assert y.shape == y0.shape == blocks.shape[:2]
+    assert _rel(y, y0) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 31, 376, 1001, 1064])
+@pytest.mark.parametrize("R", [1, 9, 136, 544])
+def test_b4_gemv_rows_and_widths_on_card(hopper, R, W):
+    g = torch.Generator(device=hopper).manual_seed(R * 7919 + W)
+    blocks = torch.randn(3, R, W, generator=g, device=hopper)
+    _hold_b4(blocks.to(torch.bfloat16),
+             torch.randn(3, W, generator=g, device=hopper))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,R,W,offset", [
+    (1, 544, 1064, 0),     # one cluster: the rows spread over many CTAs
+    (512, 136, 376, 0),    # the bench chain's level 1
+    (4, 136, 376, 1),      # a view 2 bytes past a 16-byte boundary
+    (4, 40, 64, 3),
+    (2, 7, 4104, 0),       # rows longer than one pass of 8 pieces a lane
+])
+def test_b4_gemv_batch_and_alignment_on_card(hopper, P, R, W, offset):
+    g = torch.Generator(device=hopper).manual_seed(P + R + W + offset)
+    buf = torch.randn(offset + P * R * W, generator=g,
+                      device=hopper).to(torch.bfloat16)
+    blocks = buf[offset:].view(P, R, W)
+    assert blocks.is_contiguous()
+    assert (blocks.data_ptr() % 16 != 0) == (offset > 0)
+    _hold_b4(blocks, torch.randn(P, W, generator=g, device=hopper))
 
 
 @pytest.mark.gpu
