@@ -26,7 +26,9 @@ exits non-zero):
      with a block-SELL residue; one apply against the host f64 product,
      with_data, a fixed number of Jacobi-preconditioned GMRES iterations
      over the format's (fn, operands) (B1 and B5 must launch), and B1 and
-     B5 against their plain versions and library calls at these shapes;
+     B5 against their plain versions and library calls at these shapes
+     (B5 on its sliced, length-sorted layout, which is also held against
+     the JAX-identical planes it was gathered from);
   6. elasticity solve: LinElas on Domain.structured(3, 40) (P1, 206,763
      dofs), one face clamped, body load, 'Use Mixed Precision' + 'TwoLevel'
      with the rigid-body null space and 128 clusters, to 1e-8 through
@@ -186,14 +188,14 @@ def _host_relres(np, A_sp, b, x):
 
 def _block_sell_to_torch_csr(torch, bs, stored=False):
     """The block-SELL planes back to one torch CSR tensor on the planar
-    padded spaces the kernel works in (the B5 yardstick): row ci*n_rows + r,
-    column cj*nx2*128 + node column.  It keeps the nonzero values, or with
+    spaces the kernel works in (the B5 yardstick): row ci*nn + r, column
+    cj*nx2*128 + node column.  It keeps the nonzero values, or with
     `stored` every entry the matrix stores (zeros included: the kernel's
     work without the padding)."""
     lay, d = bs.layout, bs.d
     nch, E = bs.vals.shape[0], lay.E
-    n_rows = nch * 8 * (128 // E)
-    nx = (bs.shape[0] // d + 127) // 128 * 128
+    n_rows = bs.shape[0] // d
+    nx = (n_rows + 127) // 128 * 128
     p = lay.pidx.reshape(nch, -1).long()
     ncol = (torch.gather(lay.bids.long(), 1, p >> 7) * 128
             + (p & 127)).reshape(-1)
@@ -207,7 +209,8 @@ def _block_sell_to_torch_csr(torch, bs, stored=False):
     for ci in range(d):
         for cj in range(d):
             v = bs.vals[:, ci * d + cj].reshape(-1)
-            keep = in_use[ci * d + cj] if stored else v != 0
+            keep = (in_use[ci * d + cj] if stored else v != 0) & (
+                nrow < n_rows)
             rows.append(ci * n_rows + nrow[keep])
             cols.append(cj * nx + ncol[keep])
             vals.append(v[keep])
@@ -370,7 +373,7 @@ def main(argv=None):
         values (the same function), `lib_stored_ms` over a CSR of every
         stored entry (the same work as the kernel, less the padding).
         `more` adds keys whose values are dicts of times (B2's with its
-        inputs out of L2, B4's at a stress shape)."""
+        inputs out of L2, B4's at a stress shape, B5's three bounds)."""
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -648,10 +651,10 @@ def main(argv=None):
 
     diag = A.diagonal()
     dinv = torch.where(diag != 0, 1.0 / diag, torch.ones_like(diag)).float()
-    b5 = prob.rhs[0].float()
+    b5_vec = prob.rhs[0].float()
     _cuda.reset_launch_counts()
     t_kr = time.perf_counter()
-    res5 = solve("gmres", fn5, ops5, b5, M_fn=_jacobi_op, M_ops=(dinv,),
+    res5 = solve("gmres", fn5, ops5, b5_vec, M_fn=_jacobi_op, M_ops=(dinv,),
                  tol=0.0, maxiter=200, restart=50)
     torch.cuda.synchronize()
     t_kr = time.perf_counter() - t_kr
@@ -685,53 +688,76 @@ def main(argv=None):
     hold_b1(" (elasticity operator, exit gather)", F.gout.idx, F.gout.n_in,
             counts5["permute_gather"] - counts5["permute_gather"] // 2)
 
-    # B5 against its plain version at this operator's shapes
-    d5, E5 = bs.d, lay.E
-    nx2 = (dom.n_nodes + 127) // 128
+    # B5 against its plain version at this operator's shapes, on the
+    # sliced layout the apply reads (and that layout against the planes)
+    d5, pl5 = bs.d, bs.plan
+    nn5 = dom.n_nodes
+    nx2 = (nn5 + 127) // 128
     x2d = torch.randn(d5 * nx2, 128, generator=g, device=dev)
-    y_k = sl.block_sell_spmv(bs.vals, lay.pidx, lay.bids, x2d, E5, d5)
-    y_p = sl.block_sell_spmv_plain(bs.vals, lay.pidx, lay.bids, x2d, E5, d5)
+    x5p = x2d.reshape(d5, -1)
+
+    def b5():
+        return sl.block_sell_slices(bs.hvals, pl5.hcols, pl5.slice_ptr,
+                                    pl5.row_of, x5p, nn5)
+
+    def b5_plain():
+        return sl.block_sell_slices_plain(bs.hvals, pl5.hcols, pl5.slice_ptr,
+                                          pl5.row_of, x5p, nn5)
+
+    y_k, y_p = b5(), b5_plain()
     torch.cuda.synchronize()
     err = float((y_k - y_p).abs().max())
-    _check(err <= 1e-5 * float(y_p.abs().max()), f"B5 error {err}")
+    ymax = float(y_p.abs().max())
+    _check(err <= 1e-6 * ymax, f"B5 error {err}")
+    y_planes = sl.block_sell_spmv_plain(bs.vals, lay.pidx, lay.bids, x2d,
+                                        lay.E, d5)[:, :nn5]
+    err_planes = float((y_p - y_planes).abs().max())
+    _check(err_planes <= 1e-5 * ymax, f"B5 layout vs planes {err_planes}")
+    del y_planes
     csr = _block_sell_to_torch_csr(torch, bs)
     csr_st = _block_sell_to_torch_csr(torch, bs, stored=True)
     xcol = x2d.reshape(-1)
     for c in (csr, csr_st):
         _check(float((c @ xcol - y_p.reshape(-1)).abs().max())
-               <= 1e-5 * float(y_p.abs().max()), "B5 yardstick")
+               <= 1e-5 * ymax, "B5 yardstick")
     slots = lay.pidx.numel()
     stored = int((bs.vals != 0).sum())
-    print(f"B5 shapes: d={d5} nchunks={bs.vals.shape[0]} E={E5} K={lay.K} "
-          f"nx2={nx2} node_rows={y_k.shape[1]} slots={slots} "
-          f"stored_nonzeros={stored} plane_bytes={bs.vals.numel() * 4}")
-    # bound_ms counts the planes as stored (padding included); the second
-    # bound counts only the nonzero values, which is what the same product
-    # needs in a format without padding
-    b_nnz = _bound(4 * stored + 2 * slots + 4 * lay.bids.numel()
-                   + 4 * x2d.numel() + 4 * y_k.numel(), 2 * stored,
+    layout_bytes = bs.hvals.numel() * 4 + pl5.nbytes()
+    xy_bytes = 4 * d5 * nn5 * 2
+    print(f"B5 shapes: d={d5} node_rows={nn5} slices="
+          f"{pl5.slice_ptr.numel() - 1} sigma={sl.SORT_WINDOW} slice_rows="
+          f"{sl.SLICE_ROWS} slots={pl5.src.numel()} occupied="
+          f"{pl5.n_occupied} slots_per_occupied={pl5.slots_per_occupied:.4f} "
+          f"layout_bytes={layout_bytes} stored_nonzeros={stored} (planes: "
+          f"nchunks={bs.vals.shape[0]} E={lay.E} K={lay.K} slots={slots} "
+          f"plane_bytes={bs.vals.numel() * 4}, kept on the card for parity)")
+    # three bounds: the planes the parent kernel read, the sliced layout
+    # this kernel reads, and what any format must move (each nonzero value
+    # and one 4 B column a nonzero block, x and y): the last is bound_ms
+    b_planes = _bound(4 * bs.vals.numel() + 2 * slots + 4 * lay.bids.numel()
+                      + 4 * x2d.numel() + 4 * d5 * nn5, 2 * stored,
+                      PEAK_F32_S)
+    b_layout = _bound(layout_bytes + xy_bytes, 2 * stored, PEAK_F32_S)
+    b_any = _bound(4 * stored + 4 * pl5.n_occupied + xy_bytes, 2 * stored,
                    PEAK_F32_S)
-    entry("B5 block_sell_spmv", "feddlib_tpu_torch/csrc/block_sell.cu",
+    entry("B5 block_sell_slices", "feddlib_tpu_torch/csrc/block_sell.cu",
           "feddlib_tpu/la/sell.py:788", counts5["block_sell_spmv"], err,
-          _device_ms(torch, lambda: sl.block_sell_spmv(
-              bs.vals, lay.pidx, lay.bids, x2d, E5, d5)),
-          _device_ms(torch, lambda: sl.block_sell_spmv_plain(
-              bs.vals, lay.pidx, lay.bids, x2d, E5, d5), samples=10,
-              calls=4),
-          _bound(4 * bs.vals.numel() + 2 * slots + 4 * lay.bids.numel()
-                 + 4 * x2d.numel() + 4 * y_k.numel(), 2 * stored,
-                 PEAK_F32_S),
+          _device_ms(torch, b5),
+          _device_ms(torch, b5_plain, samples=10, calls=4), b_any,
           _device_ms(torch, lambda: csr @ xcol),
-          _device_ms(torch, lambda: csr_st @ xcol))
-    print(f"  B5 bound from the stored nonzeros alone: {b_nnz[0]:.5f} ms "
-          f"({b_nnz[1]}); kernel at {b_nnz[0] / kernels[-1]['ms']:.3f} of "
-          f"it, at {kernels[-1]['bound_ms'] / kernels[-1]['ms']:.3f} of the "
-          f"plane bound")
+          _device_ms(torch, lambda: csr_st @ xcol),
+          bounds={"planes_ms": b_planes[0], "layout_ms": b_layout[0],
+                  "any_format_ms": b_any[0]})
+    k5 = kernels[-1]
+    print(f"  B5 at {b_any[0] / k5['ms']:.3f} of the any-format bound, "
+          f"{b_layout[0] / k5['ms']:.3f} of its layout's, "
+          f"{b_planes[0] / k5['ms']:.3f} of the planes'; layout vs planes "
+          f"max_abs_err={err_planes:.3e}")
     torch.cuda.synchronize()
     _phase("5 elasticity operator", t0)
 
-    del prob, A, A_sp, F, bs, lay, fn5, ops5, x5, y5, res5, b5, dinv, diag
-    del csr, csr_st, xcol, y_k, y_p, x2d, dom, ref5
+    del prob, A, A_sp, F, bs, lay, pl5, fn5, ops5, x5, y5, res5, dinv, diag
+    del csr, csr_st, xcol, y_k, y_p, x2d, x5p, dom, ref5, b5_vec
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,162 +1,183 @@
-// Block-SELL SpMV, f32, over d x d node blocks on planar vectors:
-//   y[ci, r] = sum_s sum_cj vals[c, ci*d + cj, s] * x[cj, col(r, s)].
+// Block-SELL SpMV, f32, over d x d node blocks on planar vectors, on the
+// sliced, length-sorted layout of la/sell.py:SlicePlan:
+//   y[ci, row_of[i]] = sum_t sum_cj hvals[t, ci*d + cj, l] * x[cj, col]
+// with col = hcols[t, l], over the columns t of the slice s = i / 32 that
+// holds sorted row i, and l = i % 32.
 //
 // Replaces the TPU kernel feddlib_tpu/la/sell.py:_block_sell_mv_pallas
-// (kernel body _make_block_kernel).  It reads the layout the JAX package
-// builds, unchanged:
-//   vals [nchunks, d*d, 8, 128] f32 (one [8, 128] plane per block entry),
-//   pidx [nchunks, 8, 128] int16 = k*128 + lane, on the NODE pattern,
-//   bids [nchunks, K] int32 (the 128-node windows of x a chunk touches),
-//   x    [d, nx2*128] f32 planar (component cj at offset cj*nx2*128),
-//   y    [d, nchunks*8*128/E] f32 planar.
-// Node row r owns the E consecutive slots r*E .. r*E+E-1 of the chunk-local
-// [8, 128] plane (chunk c = r / (8*128/E)), exactly as in the scalar kernel
-// (sell.cu).  Slot s reads node column bids[c, pidx >> 7] * 128 + (pidx & 127).
-// Padding slots hold value 0 and pidx 0, and a padded chunk's bids are 0, so
-// they read node 0: in range and multiplied by 0.  The COO spill and the cut
-// to the first nn nodes stay outside the kernel (torch), as they are plain
-// XLA in JAX.
+// (kernel body _make_block_kernel).  The TPU kernel read [nchunks, d*d, 8,
+// 128] planes that pad every node row to E slots; on the P2 elasticity
+// residue (E = 64, rows of 20 occupied slots on average) two thirds of those
+// bytes are zeros.  The host (SlicePlan) sorts the rows by occupied length
+// within windows of 1,024 rows and cuts them into slices of 32 rows, each as
+// wide as its longest row, so the padding left is a few per cent:
+//   hvals     [n_cols, d*d, 32] f32: column t of a slice, one 128 B line per
+//             block entry (lane l = the slice's l-th row);
+//   hcols     [n_cols, 32] int32: the node column of each entry (0 for
+//             padding, whose values are 0);
+//   slice_ptr [nslices + 1] int64: slice s owns columns slice_ptr[s] ..
+//             slice_ptr[s+1]-1;
+//   row_of    [n_rows] int32: the original row of each sorted row;
+//   x         [d, x_stride] f32 planar (component cj at cj*x_stride);
+//   y         [d, n_rows] f32 planar.
+// The COO spill stays outside the kernel (torch), as it is plain XLA in JAX.
 //
-// The TPU kernel made K masked lane-gather passes per component, summed lanes
-// to rows with a 0/1 matmul at Precision.HIGHEST, looped over 64 chunks per
-// grid step and gave way to XLA above 2048 chunks (a scalar-memory limit).
-// None of that carries over: a thread loads any address, rows are summed in
-// true f32 on the CUDA cores (no tensor cores, no TF32), and the grid covers
-// any chunk count.
-//
-// Bound on the H100: bytes.  Per slot d*d*4 B of values and 2 B of index
-// stream in once for 2*d*d operations; x is read through L2.  Design:
-// T = min(E, 32) neighbouring threads share one node row, so a warp reads 32
-// consecutive slots (64 B of indices, then 128 B coalesced from each of the
-// d*d value planes).  A thread resolves its slot's column once, loads the d
-// values x[cj, col], keeps d partial sums, and the T threads combine them
-// with warp shuffles; one lane writes y[ci, r].  d = 2 and 3 are unrolled
-// (D template); any other d runs the same kernel with a loop over ci that
-// re-reads the (cached) index per output component.
+// Bound on the H100: bytes.  Per column entry d*d*4 B of values and 4 B of
+// column stream in once for 2*d*d operations; x (a few MB) is gathered
+// through L1/L2.  Design: one thread a sorted row, one warp a slice, so every
+// value and column load is one coalesced 128 B line.  A CTA is that one warp:
+// slice widths differ up to 6x, and a CTA of 8 warps held its slot until its
+// longest slice was done (0.102 ms against 0.080 at phase 5 on the H100), so
+// the block scheduler balances warps directly, and the host orders the
+// slices widest first.  A thread keeps d partial sums in registers (no
+// shuffles) and takes its columns four at a time: the step's columns,
+// values and x are loaded before its multiply-adds.  Values and columns are
+// read once, with evict-first loads (9 % faster on the H100 than plain
+// loads), x through the read-only path.  Each row's y is written once, zero
+// for an empty row.
+// d = 2 and 3 are unrolled; any other d runs a loop over ci that re-reads
+// the (cached) columns.  True f32 FMAs on the CUDA cores: no TF32.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kChunkSlots = 8 * 128;
+constexpr int kSliceRows = 32;
+constexpr int kUnroll = 4;
 
-template <int T>
-__device__ __forceinline__ float group_sum(float v) {
+template <int D>
+__device__ __forceinline__ void gather_fma(const float* __restrict__ vp,
+                                           const float* __restrict__ x,
+                                           long long x_stride, int col,
+                                           float (&acc)[D]) {
+  float xv[D];
 #pragma unroll
-  for (int off = T / 2; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off, T);
-  return v;
+  for (int cj = 0; cj < D; ++cj) xv[cj] = __ldg(x + cj * x_stride + col);
+#pragma unroll
+  for (int ci = 0; ci < D; ++ci)
+#pragma unroll
+    for (int cj = 0; cj < D; ++cj)
+      acc[ci] = fmaf(__ldcs(vp + (ci * D + cj) * kSliceRows), xv[cj], acc[ci]);
 }
 
-// D > 0: d == D, unrolled.  D == 0: runtime d.
-template <int T, int D>
-__global__ void block_sell_spmv_f32_kernel(
-    const float* __restrict__ vals, const short* __restrict__ pidx,
-    const int* __restrict__ bids, const float* __restrict__ x,
-    float* __restrict__ y, long long n_rows, int rpc, int K, int E, int d_rt,
-    long long x_stride) {
-  const int d = D > 0 ? D : d_rt;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // every lane of a warp runs the same number of loop trips (the bound is
-  // rounded up to whole warps), so the shuffles always see a full warp
-  const long long bound = (n_rows * T + 31) / 32 * 32;
-  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       g < bound; g += stride) {
-    const long long r = g / T;
-    const int t = (int)(g % T);
-    const bool live = r < n_rows;
-    const long long c = live ? r / rpc : 0;
-    const int in_chunk = live ? (int)(r - c * rpc) * E : 0;
-    const int* win = bids + c * K;
-    const short* prow = pidx + c * kChunkSlots + in_chunk;
-    const float* vrow = vals + c * (long long)(d * d) * kChunkSlots + in_chunk;
-    if constexpr (D > 0) {
-      float acc[D];
+// d == D, unrolled; one warp a CTA, slice blockIdx.x (+ gridDim.x ...).
+template <int D>
+__global__ void __launch_bounds__(kSliceRows)
+block_sell_slices_kernel(const float* __restrict__ hvals,
+                         const int* __restrict__ hcols,
+                         const long long* __restrict__ slice_ptr,
+                         const int* __restrict__ row_of,
+                         const float* __restrict__ x, float* __restrict__ y,
+                         long long n_rows, long long nslices,
+                         long long x_stride) {
+  constexpr int DD = D * D;
+  const int lane = threadIdx.x;
+  for (long long s = blockIdx.x; s < nslices; s += gridDim.x) {
+    const long long t0 = __ldg(slice_ptr + s);
+    const int w = (int)(__ldg(slice_ptr + s + 1) - t0);
+    const int* cp = hcols + t0 * kSliceRows + lane;
+    const float* vp = hvals + t0 * DD * kSliceRows + lane;
+    float acc[D];
 #pragma unroll
-      for (int ci = 0; ci < D; ++ci) acc[ci] = 0.0f;
-      if (live) {
-        for (int s = t; s < E; s += T) {
-          const int p = (int)__ldg(prow + s);
-          const long long col = (long long)__ldg(win + (p >> 7)) * 128 + (p & 127);
-          float xv[D];
+    for (int ci = 0; ci < D; ++ci) acc[ci] = 0.0f;
+    int t = 0;
+    for (; t + kUnroll <= w; t += kUnroll) {
+      int col[kUnroll];
+      float v[kUnroll][DD], xv[kUnroll][D];
 #pragma unroll
-          for (int cj = 0; cj < D; ++cj) xv[cj] = __ldg(x + cj * x_stride + col);
+      for (int u = 0; u < kUnroll; ++u)
+        col[u] = __ldcs(cp + (t + u) * kSliceRows);
 #pragma unroll
-          for (int ci = 0; ci < D; ++ci)
+      for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
-            for (int cj = 0; cj < D; ++cj)
-              acc[ci] = fmaf(__ldg(vrow + (ci * D + cj) * kChunkSlots + s),
-                             xv[cj], acc[ci]);
-        }
-      }
+        for (int q = 0; q < DD; ++q)
+          v[u][q] = __ldcs(vp + ((long long)(t + u) * DD + q) * kSliceRows);
 #pragma unroll
-      for (int ci = 0; ci < D; ++ci) {
-        const float sum = group_sum<T>(acc[ci]);
-        if (t == 0 && live) y[ci * n_rows + r] = sum;
-      }
-    } else {
-      for (int ci = 0; ci < d; ++ci) {
-        float acc = 0.0f;
-        if (live) {
-          for (int s = t; s < E; s += T) {
-            const int p = (int)__ldg(prow + s);
-            const long long col =
-                (long long)__ldg(win + (p >> 7)) * 128 + (p & 127);
-            for (int cj = 0; cj < d; ++cj)
-              acc = fmaf(__ldg(vrow + (long long)(ci * d + cj) * kChunkSlots + s),
-                         __ldg(x + cj * x_stride + col), acc);
-          }
-        }
-        const float sum = group_sum<T>(acc);
-        if (t == 0 && live) y[ci * n_rows + r] = sum;
-      }
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int cj = 0; cj < D; ++cj)
+          xv[u][cj] = __ldg(x + cj * x_stride + col[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int ci = 0; ci < D; ++ci)
+#pragma unroll
+          for (int cj = 0; cj < D; ++cj)
+            acc[ci] = fmaf(v[u][ci * D + cj], xv[u][cj], acc[ci]);
+    }
+    for (; t < w; ++t)
+      gather_fma<D>(vp + (long long)t * DD * kSliceRows, x, x_stride,
+                    __ldcs(cp + t * kSliceRows), acc);
+    const long long i = s * kSliceRows + lane;
+    if (i < n_rows) {
+      const int r = __ldg(row_of + i);
+#pragma unroll
+      for (int ci = 0; ci < D; ++ci) y[ci * n_rows + r] = acc[ci];
     }
   }
 }
 
-template <int T, int D>
-void launch(const float* vals, const short* pidx, const int* bids,
-            const float* x, float* y, long long n_rows, int rpc, int K, int E,
-            int d, long long x_stride, cudaStream_t stream) {
-  const int threads = 256;
-  long long blocks = (n_rows * T + threads - 1) / threads;
-  if (blocks > (1LL << 20)) blocks = 1LL << 20;
-  block_sell_spmv_f32_kernel<T, D><<<(unsigned)blocks, threads, 0, stream>>>(
-      vals, pidx, bids, x, y, n_rows, rpc, K, E, d, x_stride);
-}
-
-template <int T>
-void launch_d(const float* vals, const short* pidx, const int* bids,
-              const float* x, float* y, long long n_rows, int rpc, int K,
-              int E, int d, long long x_stride, cudaStream_t stream) {
-  switch (d) {
-    case 2: launch<T, 2>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, x_stride, stream); break;
-    case 3: launch<T, 3>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, x_stride, stream); break;
-    default: launch<T, 0>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, x_stride, stream); break;
+// Any d: one output component at a time.
+__global__ void __launch_bounds__(kSliceRows)
+block_sell_slices_any_kernel(const float* __restrict__ hvals,
+                             const int* __restrict__ hcols,
+                             const long long* __restrict__ slice_ptr,
+                             const int* __restrict__ row_of,
+                             const float* __restrict__ x,
+                             float* __restrict__ y, long long n_rows,
+                             long long nslices, int d, long long x_stride) {
+  const int lane = threadIdx.x;
+  const long long dd = (long long)d * d;
+  for (long long s = blockIdx.x; s < nslices; s += gridDim.x) {
+    const long long t0 = __ldg(slice_ptr + s);
+    const int w = (int)(__ldg(slice_ptr + s + 1) - t0);
+    const int* cp = hcols + t0 * kSliceRows + lane;
+    const float* vp = hvals + t0 * dd * kSliceRows + lane;
+    const long long i = s * kSliceRows + lane;
+    const int r = i < n_rows ? __ldg(row_of + i) : 0;
+    for (int ci = 0; ci < d; ++ci) {
+      float acc = 0.0f;
+      for (int t = 0; t < w; ++t) {
+        const int col = __ldg(cp + t * kSliceRows);
+        const float* v = vp + ((long long)t * dd + ci * d) * kSliceRows;
+        for (int cj = 0; cj < d; ++cj)
+          acc = fmaf(__ldg(v + cj * kSliceRows),
+                     __ldg(x + cj * x_stride + col), acc);
+      }
+      if (i < n_rows) y[ci * n_rows + r] = acc;
+    }
   }
 }
 
+
+
 }  // namespace
 
-// y must hold d * nchunks * 8 * 128 / E values; E is a power of two <= 128;
-// x holds d planes of nx2 * 128 values.
-extern "C" int fedd_block_sell_spmv_f32(const float* vals, const short* pidx,
-                                        const int* bids, const float* x,
-                                        float* y, long long nchunks, int K,
-                                        int E, int d, int nx2,
-                                        cudaStream_t stream) {
-  if (E < 1 || E > 128 || (E & (E - 1)) != 0 || d < 1 || nx2 < 1 || K < 1)
+// y holds d * n_rows values; slice_ptr nslices + 1 = ceil(n_rows / 32) + 1
+// entries; every hcols entry is < x_stride.
+extern "C" int fedd_block_sell_slices_f32(
+    const float* hvals, const int* hcols, const long long* slice_ptr,
+    const int* row_of, const float* x, float* y, long long n_rows,
+    long long nslices, int d, long long x_stride, cudaStream_t stream) {
+  if (d < 1 || x_stride < 1 || n_rows < 0 ||
+      nslices != (n_rows + kSliceRows - 1) / kSliceRows)
     return (int)cudaErrorInvalidValue;
-  const int rpc = 8 * (128 / E);
-  const long long n_rows = nchunks * rpc;
-  const long long xs = (long long)nx2 * 128;
-  if (n_rows > 0) {
-    switch (E < 32 ? E : 32) {
-      case 1: launch_d<1>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, xs, stream); break;
-      case 2: launch_d<2>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, xs, stream); break;
-      case 4: launch_d<4>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, xs, stream); break;
-      case 8: launch_d<8>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, xs, stream); break;
-      case 16: launch_d<16>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, xs, stream); break;
-      default: launch_d<32>(vals, pidx, bids, x, y, n_rows, rpc, K, E, d, xs, stream); break;
+  if (nslices > 0) {
+    const unsigned grid = (unsigned)(nslices < (1LL << 30) ? nslices
+                                                           : (1LL << 30));
+    switch (d) {
+      case 2:
+        block_sell_slices_kernel<2><<<grid, kSliceRows, 0, stream>>>(
+            hvals, hcols, slice_ptr, row_of, x, y, n_rows, nslices, x_stride);
+        break;
+      case 3:
+        block_sell_slices_kernel<3><<<grid, kSliceRows, 0, stream>>>(
+            hvals, hcols, slice_ptr, row_of, x, y, n_rows, nslices, x_stride);
+        break;
+      default:
+        block_sell_slices_any_kernel<<<grid, kSliceRows, 0, stream>>>(
+            hvals, hcols, slice_ptr, row_of, x, y, n_rows, nslices, d,
+            x_stride);
+        break;
     }
   }
   return (int)cudaGetLastError();

@@ -13,11 +13,24 @@
 // padded-cluster solve's shapes the f32 stream is about a gigabyte, far above
 // the 50 MB L2, so the kernel is a device-memory stream.
 //
-// f32 design: one block of 8 warps per tile of 64 rows of one cluster; x[p]
-// is staged once in shared memory; each warp walks its rows with 16-byte
-// loads (4 f32 per lane, neighbouring lanes on neighbouring addresses) and
-// reduces the row with warp shuffles.
-//
+// f32 design (W % 4 == 0, 16-byte aligned blocks and xs): a bulk-copy ring
+// over a resident grid.  One tile of 64 rows a CTA left a tail wave (3.15
+// waves at [128, 1624, 3256]) and tail tiles, stalled every CTA on staging
+// x before its first load, and drained its loads at every row.  Now the
+// grid has as many CTAs as the card holds at once (two an SM), each owning
+// an equal contiguous range of the flattened P*R rows.  A CTA's rows are one
+// contiguous byte range: one producer thread copies it into a ring of
+// shared-memory stages (whole rows of one cluster, about 32 KB a stage,
+// three stages) with 1D TMA bulk copies (cp.async.bulk, completion on an
+// mbarrier, L2 evict-first: the store is read once), keeping the ring full
+// with no registers spent on the copy; x[p] comes the same way into one of
+// two buffers whenever the range enters a new cluster, and the first copies
+// go out before any x is needed.  Eight consumer warps take the rows in
+// turn, each as float4 against x[p] in shared memory, reduce with shuffles
+// and write y once a row, then release the stage.  Any other W or alignment,
+// or a row too long for two stages, takes the general kernel (one CTA of 8
+// warps per 64-row tile, x staged in shared memory, 16-byte loads where the
+// alignment allows).
 // bf16 design (W % 8 == 0, aligned store): a row one warp walked alone kept
 // only one or two 16-byte loads per lane in flight behind the previous row's
 // shuffles, and 64-row tiles left a tail tile at R = 136.  Now the grid has
@@ -289,14 +302,244 @@ int launch_bf16(const __nv_bfloat16* blocks, const float* xs, float* y,
   return (int)cudaGetLastError();
 }
 
+// -- B3: the bulk-copy ring -------------------------------------------------
+
+constexpr int kRingConsumers = 8;                    // consumer warps
+constexpr int kRingThreads = (kRingConsumers + 1) * 32;
+constexpr int kRingMaxStages = 8;
+constexpr int kRingHeader = 256;                     // mbarriers, 128-aligned
+constexpr size_t kRingStageTarget = 32 * 1024;
+// two CTAs an SM (each with 1 KB reserved) in the 228 KB of shared memory
+constexpr size_t kRingSmemMax = 116224;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Copy `bytes` (a multiple of 16, 16-byte aligned at both ends) from global
+// to shared memory; the copy completes `bytes` of the barrier's expected
+// transactions, which this thread announces first.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// Rows of the next stage: at most rps, and never past the end of the
+// cluster or of the CTA's range, so a stage has one x[p].
+__device__ __forceinline__ int stage_rows(long long r, long long hi, int R,
+                                          int rps) {
+  const long long end = min(hi, (r / R + 1) * R);
+  return (int)min((long long)rps, end - r);
+}
+
+__global__ void __launch_bounds__(kRingThreads, 2)
+dense_gemv_f32_ring_kernel(const float* __restrict__ blocks,
+                           const float* __restrict__ xs,
+                           float* __restrict__ y, int R, int W,
+                           long long n_rows, long long rows_per_cta, int rps,
+                           int stages) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kRingMaxStages;
+  uint64_t* xfull = empty + kRingMaxStages;
+  uint64_t* xempty = xfull + 2;
+  float* xbuf = reinterpret_cast<float*>(smem + kRingHeader);   // [2][W]
+  float* ring = xbuf + 2 * (size_t)W;                            // [S][rps*W]
+  const size_t stage_floats = (size_t)rps * W;
+  const long long lo = (long long)blockIdx.x * rows_per_cta;
+  const long long hi = min(n_rows, lo + rows_per_cta);
+  if (lo >= hi) return;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kRingConsumers);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(xfull + b, 1);
+      mbar_init(xempty + b, kRingConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kRingConsumers) {   // the producer
+    if (lane != 0) return;
+    long long p_cur = -1;
+    int k = -1;                   // clusters entered so far, minus one
+    int u = 0;                    // stages copied so far
+    for (long long r = lo; r < hi; ++u) {
+      const long long p = r / R;
+      if (p != p_cur) {           // x[p] into buffer k & 1
+        p_cur = p;
+        ++k;
+        if (k >= 2) mbar_wait(xempty + (k & 1), ((k >> 1) - 1) & 1);
+        bulk_load(xbuf + (k & 1) * (size_t)W, xs + p * W, (uint32_t)W * 4,
+                  xfull + (k & 1));
+      }
+      const int n = stage_rows(r, hi, R, rps);
+      const int s = u % stages;
+      if (u >= stages) mbar_wait(empty + s, ((u / stages) - 1) & 1);
+      bulk_load(ring + s * stage_floats, blocks + r * W,
+                (uint32_t)n * W * 4, full + s);
+      r += n;
+    }
+    return;
+  }
+
+  // consumers: row q of the range (q = r - lo) belongs to warp q % 8; every
+  // warp waits on every stage and releases it, in order
+  const int W4 = W >> 2;
+  long long p_cur = -1;
+  int k = -1;
+  const float4* x4 = nullptr;
+  int u = 0;
+  for (long long r = lo; r < hi; ++u) {
+    const long long p = r / R;
+    if (p != p_cur) {
+      if (k >= 0) {               // done with the last cluster's x
+        __syncwarp();
+        if (lane == 0) mbar_arrive(xempty + (k & 1));
+      }
+      p_cur = p;
+      ++k;
+      mbar_wait(xfull + (k & 1), (k >> 1) & 1);
+      x4 = reinterpret_cast<const float4*>(xbuf + (k & 1) * (size_t)W);
+    }
+    const int n = stage_rows(r, hi, R, rps);
+    const int s = u % stages;
+    mbar_wait(full + s, (u / stages) & 1);
+    const float4* st =
+        reinterpret_cast<const float4*>(ring + s * stage_floats);
+    const int q0 = (int)((r - lo) % kRingConsumers);
+    for (int j = (warp - q0 + kRingConsumers) % kRingConsumers; j < n;
+         j += kRingConsumers) {
+      const float4* row = st + (size_t)j * W4;
+      float acc0 = 0.0f, acc1 = 0.0f;
+      int i = lane;
+      for (; i + 32 < W4; i += 64) {
+        const float4 a = row[i], b = x4[i];
+        const float4 c = row[i + 32], e = x4[i + 32];
+        acc0 = fmaf(a.x, b.x, acc0);
+        acc1 = fmaf(c.x, e.x, acc1);
+        acc0 = fmaf(a.y, b.y, acc0);
+        acc1 = fmaf(c.y, e.y, acc1);
+        acc0 = fmaf(a.z, b.z, acc0);
+        acc1 = fmaf(c.z, e.z, acc1);
+        acc0 = fmaf(a.w, b.w, acc0);
+        acc1 = fmaf(c.w, e.w, acc1);
+      }
+      if (i < W4) {
+        const float4 a = row[i], b = x4[i];
+        acc0 = fmaf(a.x, b.x, acc0);
+        acc0 = fmaf(a.y, b.y, acc0);
+        acc0 = fmaf(a.z, b.z, acc0);
+        acc0 = fmaf(a.w, b.w, acc0);
+      }
+      const float acc = warp_sum(acc0 + acc1);
+      if (lane == 0) y[r + j] = acc;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + s);
+    r += n;
+  }
+}
+
+// The ring's shape for rows of W floats: rows per stage and stages, or
+// false when two stages of one row and the two x buffers do not fit.
+bool ring_shape(int R, int W, int* rps, int* stages, size_t* smem) {
+  const size_t row = (size_t)W * 4;
+  size_t n = kRingStageTarget / row;
+  if (n < 1) n = 1;
+  if (n > (size_t)R) n = R;
+  const size_t fixed = kRingHeader + 2 * row;
+  if (fixed + 2 * n * row > kRingSmemMax) return false;
+  size_t s = (kRingSmemMax - fixed) / (n * row);
+  if (s > kRingMaxStages) s = kRingMaxStages;
+  *rps = (int)n;
+  *stages = (int)s;
+  *smem = fixed + s * n * row;
+  return true;
+}
+
+int launch_f32_ring(const float* blocks, const float* xs, float* y, int P,
+                    int R, int W, int rps, int stages, size_t smem,
+                    cudaStream_t stream) {
+  const auto kernel = dense_gemv_f32_ring_kernel;
+  int e = set_smem((const void*)kernel, smem);
+  if (e != cudaSuccess) return e;
+  static size_t cached_smem = (size_t)-1;
+  static int per_sm = 1;
+  if (cached_smem != smem) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, kRingThreads, smem) != cudaSuccess ||
+        per_sm < 1)
+      per_sm = 1;
+    cached_smem = smem;
+  }
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long n_rows = (long long)P * R;
+  long long grid = (long long)(sms > 0 ? sms : 1) * per_sm;
+  if (grid > n_rows) grid = n_rows;
+  const long long rows_per_cta = (n_rows + grid - 1) / grid;
+  grid = (n_rows + rows_per_cta - 1) / rows_per_cta;
+  kernel<<<(unsigned)grid, kRingThreads, smem, stream>>>(
+      blocks, xs, y, R, W, n_rows, rows_per_cta, rps, stages);
+  return (int)cudaGetLastError();
+}
+
 int launch_f32(const float* blocks, const float* xs, float* y, int P, int R,
                int W, cudaStream_t stream) {
   if (P <= 0 || R <= 0) return (int)cudaGetLastError();
+  const bool vec = (W % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(blocks) % 16 == 0);
+  int rps = 0, stages = 0;
+  size_t ring_smem = 0;
+  if (vec && W > 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 &&
+      ring_shape(R, W, &rps, &stages, &ring_smem))
+    return launch_f32_ring(blocks, xs, y, P, R, W, rps, stages, ring_smem,
+                           stream);
   const size_t smem = ((size_t)W * sizeof(float) + 15) / 16 * 16;
   int e = set_smem((const void*)dense_gemv_f32_kernel, smem);
   if (e != cudaSuccess) return e;
-  const bool vec = (W % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(blocks) % 16 == 0);
   const int tiles = (R + kRowsPerBlock - 1) / kRowsPerBlock;
   const long long grid = (long long)P * tiles;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;

@@ -41,9 +41,9 @@ _SIGNATURES = {
     "fedd_permute_gather_f32": [_P, _P, _P, ctypes.c_longlong, _P],
     "fedd_sell_spmv_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                            ctypes.c_int, ctypes.c_int, _P],
-    "fedd_block_sell_spmv_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
-                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_int, _P],
+    "fedd_block_sell_slices_f32": [_P, _P, _P, _P, _P, _P,
+                                   ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_longlong, _P],
     "fedd_dense_gemv_f32": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, _P],
     "fedd_dense_gemv_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -126,11 +126,15 @@ def build(csrc_dir: str = CSRC_DIR) -> str:
     return lib_path
 
 
-def load(path: str) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C entries."""
+def load(path: str, signatures=None) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C entries: those of
+    `_SIGNATURES` and of `signatures` (name -> argtypes) that it has (an
+    older build may lack some, or have others)."""
     handle = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(handle, name)
+    for name, argtypes in {**_SIGNATURES, **(signatures or {})}.items():
+        fn = getattr(handle, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return handle

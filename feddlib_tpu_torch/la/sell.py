@@ -16,9 +16,12 @@ the JAX package:
 `BlockSellMatrix` builds that slot layout once on the NODE pattern of a
 vector-field operator (NodeWise dofs, dof = node*d + c); each slot then
 carries the d x d block of values as d*d planes, and vectors are PLANAR
-[d, nn] (component-major).
+[d, nn] (component-major).  Those planes pad every node row to E slots; the
+card applies a second layout built from them (`SlicePlan`): node rows
+sorted by occupied length within windows of SORT_WINDOW rows, cut into
+slices of SLICE_ROWS rows, each slice as wide as its longest row.
 
-`sell_spmv` / `block_sell_spmv` launch the CUDA kernels (csrc/sell.cu,
+`sell_spmv` / `block_sell_slices` launch the CUDA kernels (csrc/sell.cu,
 csrc/block_sell.cu) for a CUDA tensor and run the plain versions for a CPU
 tensor.  The JAX package splits (B2) or abandons (B5) its kernel launch
 above 2048 chunks for the TPU's scalar memory; the card needs neither.
@@ -34,6 +37,8 @@ from feddlib_tpu_torch.la.permute import permute_op
 from feddlib_tpu_torch.utils.device import resolve_device
 
 _LANES = 128
+SLICE_ROWS = 32        # node rows of a slice: one warp, a thread a row
+SORT_WINDOW = 1024     # rows are sorted by occupied length in such windows
 
 
 def _round_up(x, m):
@@ -101,32 +106,55 @@ def block_sell_spmv_plain(vals, pidx, bids, x2d, E, d):
     return torch.stack(ys)
 
 
-def block_sell_spmv(vals, pidx, bids, x2d, E, d):
-    """Block-SELL SpMV of f32 planes: vals [nchunks, d*d, 8, 128] f32, pidx
-    [nchunks, 8, 128] int16, bids [nchunks, K] int32, x2d [d*nx2, 128] f32
-    (planar: component cj at rows cj*nx2 ..) → y [d, nchunks*8*128/E]."""
-    if vals.device.type == "cpu":
-        return block_sell_spmv_plain(vals, pidx, bids, x2d, E, d)
-    _cuda.require_hopper(vals, pidx, bids, x2d)
-    _cuda.require(vals, "vals", torch.float32, 4)
-    _cuda.require(pidx, "pidx", torch.int16, 3)
-    _cuda.require(bids, "bids", torch.int32, 2)
-    _cuda.require(x2d, "x2d", torch.float32, 2)
-    if E not in (1, 2, 4, 8, 16, 32, 64, 128):
-        raise ValueError(f"E must be a power of two <= 128, got {E}")
-    nchunks = vals.shape[0]
-    if (d < 1 or tuple(vals.shape[1:]) != (d * d, 8, _LANES)
-            or tuple(pidx.shape) != (nchunks, 8, _LANES)
-            or bids.shape[0] != nchunks or x2d.shape[1] != _LANES
-            or x2d.shape[0] % d or x2d.shape[0] == 0):
-        raise ValueError("inconsistent block-SELL plane shapes")
-    n_rows = nchunks * 8 * (_LANES // E)
-    y = torch.empty((d, n_rows), dtype=torch.float32, device=vals.device)
-    rc = _cuda.lib().fedd_block_sell_spmv_f32(
-        vals.data_ptr(), pidx.data_ptr(), bids.data_ptr(), x2d.data_ptr(),
-        y.data_ptr(), nchunks, bids.shape[1], E, d, x2d.shape[0] // d,
-        _cuda.stream_of(vals))
-    _cuda.check(rc, "block_sell_spmv")
+def block_sell_slices_plain(hvals, hcols, slice_ptr, row_of, x, n_rows):
+    """Plain PyTorch version of the sliced block SpMV (`SlicePlan` layout):
+    one gather of x by hcols, a multiply by hvals and an index_add into the
+    original rows.  hvals [n_cols, d*d, SLICE_ROWS], hcols [n_cols,
+    SLICE_ROWS], x [d, nx] planar → y [d, n_rows]."""
+    d = x.shape[0]
+    n_cols = hcols.shape[0]
+    widths = slice_ptr[1:] - slice_ptr[:-1]
+    nslices = widths.numel()
+    slice_of = torch.repeat_interleave(
+        torch.arange(nslices, device=x.device), widths)        # [n_cols]
+    pad = nslices * SLICE_ROWS - n_rows
+    rows = torch.cat([row_of.long(), row_of.new_full((pad,), n_rows).long()])
+    dest = rows[slice_of[:, None] * SLICE_ROWS
+                + torch.arange(SLICE_ROWS, device=x.device)]    # [n_cols, C]
+    xg = x[:, hcols.long()]                                 # [d, n_cols, C]
+    v = hvals.reshape(n_cols, d, d, SLICE_ROWS)
+    contrib = torch.einsum("tijc,jtc->itc", v, xg).reshape(d, -1)
+    y = torch.zeros((d, n_rows + 1), dtype=x.dtype, device=x.device)
+    return y.index_add_(1, dest.reshape(-1), contrib)[:, :n_rows]
+
+
+def block_sell_slices(hvals, hcols, slice_ptr, row_of, x, n_rows):
+    """Sliced block SpMV in f32 (kernel B5): hvals [n_cols, d*d, 32] f32,
+    hcols [n_cols, 32] int32, slice_ptr [nslices + 1] int64, row_of
+    [n_rows] int32, x [d, nx] f32 planar (node columns < nx) →
+    y [d, n_rows]."""
+    if hvals.device.type == "cpu":
+        return block_sell_slices_plain(hvals, hcols, slice_ptr, row_of, x,
+                                       n_rows)
+    _cuda.require_hopper(hvals, hcols, slice_ptr, row_of, x)
+    _cuda.require(hvals, "hvals", torch.float32, 3)
+    _cuda.require(hcols, "hcols", torch.int32, 2)
+    _cuda.require(slice_ptr, "slice_ptr", torch.int64, 1)
+    _cuda.require(row_of, "row_of", torch.int32, 1)
+    _cuda.require(x, "x", torch.float32, 2)
+    d = x.shape[0]
+    nslices = slice_ptr.numel() - 1
+    if (d < 1 or tuple(hvals.shape[1:]) != (d * d, SLICE_ROWS)
+            or tuple(hcols.shape) != (hvals.shape[0], SLICE_ROWS)
+            or row_of.numel() != n_rows
+            or nslices != -(-n_rows // SLICE_ROWS) or x.shape[1] == 0):
+        raise ValueError("inconsistent sliced block-SELL shapes")
+    y = torch.empty((d, n_rows), dtype=torch.float32, device=x.device)
+    rc = _cuda.lib().fedd_block_sell_slices_f32(
+        hvals.data_ptr(), hcols.data_ptr(), slice_ptr.data_ptr(),
+        row_of.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows, nslices, d,
+        x.shape[1], _cuda.stream_of(x))
+    _cuda.check(rc, "block_sell_slices")
     _cuda.launch_counts["block_sell_spmv"] += 1
     return y
 
@@ -156,6 +184,7 @@ class SellMatrix:
         # (set under order='rcm' and by sell_padded_from; None = same order)
         self.csr_order = csr_order
         self.device = vals.device
+        self._slice_plan = None  # built by slice_plan() for B5
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -471,6 +500,11 @@ class BlockSellMatrix:
     Vectors are PLANAR [d, nn] (see la/dia.BlockDiaMatrix).  Non-square or
     non-NodeWise matrices give None; use auto_spmv, which goes on to the
     scalar formats.
+
+    The [nchunks, d*d, 8, 128] planes are the JAX package's layout (the
+    parity tests compare them); the apply reads `hvals`, the same values
+    in the sliced layout of `slice_plan(layout)`, gathered out of the
+    planes here, so every constructor and with_data gets it.
     """
 
     def __init__(self, n, d, layout, vals, spill_rows, spill_cols,
@@ -487,6 +521,8 @@ class BlockSellMatrix:
         self.spill_sel = spill_sel
         self.dtype = dtype
         self.device = vals.device
+        self.plan = slice_plan(layout)
+        self.hvals = self.plan.gather(vals)   # [n_cols, d*d, SLICE_ROWS]
 
     @classmethod
     def from_csr(cls, A, d, dtype=torch.float32, E=None, K=None,
@@ -564,10 +600,10 @@ class BlockSellMatrix:
 
     # -- applies -------------------------------------------------------------
     def operands(self):
-        lay = self.layout
-        return (self.vals, lay.pidx, lay.bids, self.spill_rows,
-                self.spill_cols, self.spill_vals, self.shape[0] // self.d,
-                self.d, lay.E)
+        pl = self.plan
+        return (self.hvals, pl.hcols, pl.slice_ptr, pl.row_of,
+                self.spill_rows, self.spill_cols, self.spill_vals,
+                self.shape[0] // self.d, self.d)
 
     def planar_operator(self):
         """(fn, operands) on planar [d, nn] vectors."""
@@ -582,9 +618,11 @@ class BlockSellMatrix:
         return block_sell_op(self.operands(), x)
 
     def hbm_bytes_per_apply(self) -> int:
-        isz = self.vals.element_size()
-        b = (self.vals.numel() * isz + self.layout.pidx.numel() * 2
-             + self.layout.bids.numel() * 4 + 2 * self.shape[0] * isz)
+        """Device-memory bytes one apply moves: the sliced layout read once,
+        x read and y written once, the spill (the planes are not read)."""
+        isz = self.hvals.element_size()
+        b = (self.hvals.numel() * isz + self.plan.nbytes()
+             + 2 * self.shape[0] * isz)
         if self.spill_rows is not None:
             b += int(self.spill_rows.numel()) * (8 + 2 * isz)
         return b
@@ -599,28 +637,107 @@ def _block_fill(data, dof_slots, d, nchunks):
         1, 0, 2, 3).contiguous()
 
 
+class SlicePlan:
+    """The sliced layout of a node-pattern SellMatrix, which kernel B5 reads.
+
+    It comes from the layout's `data_slots` alone: node row r owns the flat
+    slots r*E .. r*E+E-1 of the planes, and its occupied slots are a prefix
+    of them (a slot's position is its entry's rank in the row).  Within
+    each window of SORT_WINDOW consecutive rows (the planes' row order), rows
+    are sorted stably by occupied length, longest first, and cut into
+    slices of C = SLICE_ROWS rows, each as wide as its longest row.  The
+    whole slices are then ordered widest first (stably; a last, partial
+    slice stays last): the kernel runs a one-warp CTA a slice, in order,
+    so the card's block scheduler starts the longest work first.  Sorted
+    row i, in slice i // C, is row `row_of[i]`; slice s owns the columns
+    slice_ptr[s] .. slice_ptr[s+1]-1, one entry a row in each.  For column
+    t and lane l, `hcols[t, l]` is the node column and `src[t, l]` the flat
+    slot of the planes the values come from; a padding entry has src -1,
+    column 0 and value 0."""
+
+    def __init__(self, layout):
+        C, E, n = SLICE_ROWS, layout.E, layout.shape[0]
+        ds = layout.data_slots
+        occ = ds[ds >= 0]
+        lens = np.bincount(occ // E, minlength=n)
+        if len(occ) and (occ % E >= lens[occ // E]).any():
+            raise ValueError("node layout rows are not prefix-occupied")
+        order = np.lexsort((np.arange(n), -lens,
+                            np.arange(n) // SORT_WINDOW))
+        nslices = -(-n // C)
+        slen = np.zeros(nslices * C, np.int64)
+        slen[:n] = lens[order]
+        widths = slen.reshape(nslices, C).max(1)
+        perm = np.arange(nslices)
+        perm[:n // C] = np.argsort(-widths[:n // C], kind="stable")
+        moved = (perm[:, None] * C + np.arange(C)).reshape(-1)
+        order = np.concatenate([order, np.zeros(nslices * C - n,
+                                                order.dtype)])[moved][:n]
+        slen, widths = slen[moved], widths[perm]
+        slice_ptr = np.zeros(nslices + 1, np.int64)
+        np.cumsum(widths, out=slice_ptr[1:])
+        slice_of = np.repeat(np.arange(nslices), widths)
+        j = (np.arange(slice_ptr[-1]) - slice_ptr[slice_of])[:, None]
+        i = slice_of[:, None] * C + np.arange(C)        # sorted rows [t, C]
+        rows = np.zeros(nslices * C, np.int64)
+        rows[:n] = order
+        src = np.where(j < slen[i], rows[i] * E + j, -1)
+
+        dev = layout.device
+        self.src = torch.as_tensor(src, device=dev)
+        f = self.src.clamp_min(0)
+        p = layout.pidx.reshape(-1)[f].long()
+        col = (layout.bids.long()[f // (8 * _LANES), p >> 7] * _LANES
+               + (p & (_LANES - 1)))
+        self.hcols = torch.where(self.src >= 0, col, 0).to(torch.int32)
+        self.slice_ptr = torch.as_tensor(slice_ptr, device=dev)
+        self.row_of = torch.as_tensor(order.astype(np.int32), device=dev)
+        self.n_rows = n
+        self.n_occupied = len(occ)
+
+    @property
+    def slots_per_occupied(self) -> float:
+        return self.src.numel() / max(self.n_occupied, 1)
+
+    def nbytes(self) -> int:
+        """Bytes of the index arrays an apply reads."""
+        return (self.hcols.numel() * 4 + self.slice_ptr.numel() * 8
+                + self.row_of.numel() * 4)
+
+    def gather(self, vals):
+        """The [nchunks, d*d, 8, 128] planes → hvals [n_cols, d*d, C]."""
+        nch, dd = vals.shape[:2]
+        f = self.src.clamp_min(0)
+        hv = vals.reshape(nch, dd, 8 * _LANES)[f // (8 * _LANES), :,
+                                                f % (8 * _LANES)]
+        hv = hv.masked_fill((self.src < 0)[..., None], 0)   # [t, C, d*d]
+        return hv.permute(0, 2, 1).contiguous()
+
+
+def slice_plan(layout) -> SlicePlan:
+    """The SlicePlan of a node layout, built once and kept on it."""
+    if layout._slice_plan is None:
+        layout._slice_plan = SlicePlan(layout)
+    return layout._slice_plan
+
+
 def block_sell_planar_op(ops, xc):
     """xc [d, nn] planar → y [d, nn]."""
-    vals, pidx, bids, s_rows, s_cols, s_vals, nn, d, E = ops
+    hvals, hcols, slice_ptr, row_of, s_rows, s_cols, s_vals, nn, d = ops
     out_dtype = xc.dtype
-    nx2 = max(_round_up(nn, _LANES) // _LANES, 1)
-    xpad = torch.zeros((d, nx2 * _LANES), dtype=vals.dtype,
-                       device=vals.device)
-    xpad[:, :nn] = xc.to(vals.dtype)
-    x2d = xpad.reshape(d * nx2, _LANES)            # component cj at rows
-    if vals.dtype == torch.float32:                # [cj*nx2, (cj+1)*nx2)
-        y = block_sell_spmv(vals, pidx, bids, x2d, E, d)
+    x = xc.to(hvals.dtype).contiguous()
+    if hvals.dtype == torch.float32:
+        y = block_sell_slices(hvals, hcols, slice_ptr, row_of, x, nn)
     else:  # the JAX package sends only f32 through its kernel
-        y = block_sell_spmv_plain(vals, pidx, bids, x2d, E, d)
-    y = y[:, :nn]
+        y = block_sell_slices_plain(hvals, hcols, slice_ptr, row_of, x, nn)
     if s_rows is not None:
-        contrib = s_vals * xpad[:, :nn].reshape(-1)[s_cols]
+        contrib = s_vals * x.reshape(-1)[s_cols]
         y = y.reshape(-1).index_add(0, s_rows, contrib).reshape(d, nn)
     return y.to(out_dtype)
 
 
 def block_sell_op(ops, x):
     """Interleaved NodeWise x [nn*d] → y [nn*d]."""
-    nn, d = ops[6], ops[7]
+    nn, d = ops[-2:]
     y = block_sell_planar_op(ops, x.reshape(nn, d).T)
     return y.T.reshape(-1).to(x.dtype)

@@ -7,16 +7,21 @@ git-ignored directory.  At the shapes of chip_smoke.py's default run
 (its own helpers build the operators), it times:
   - B2 on the padded SELL operator of the Laplace main path and of the P1
     elasticity solve, back to back and with the planes out of L2;
-  - B4 and B3 at the main path's level-1 shape (random stores: a GEMV's
-    time does not depend on the values), B4 also on the bench chain's bf16
-    level-1 inverse;
+  - B3 at the level-1 shapes of both solves, and B4 at the main path's
+    (random stores: a GEMV's time does not depend on the values), B4 also
+    on the bench chain's bf16 level-1 inverse;
   - the bench chain's M(A(x)) apply;
+  - B5 on the block-SELL residue of the P2 elasticity operator, back to
+    back and with its inputs out of L2: a build with the sliced layout's
+    entry (fedd_block_sell_slices_f32) reads that layout, an older build
+    with only fedd_block_sell_spmv_f32 reads the planes (the same operator);
 with the builds in the order A B .. B A, each a median of calls queued
 behind a spin kernel (chip_smoke._device_ms), and beside them the one-call
 PyTorch yardsticks and the byte bounds.  Each build's output is also held
 against the plain version.  Run from the repository root on the card:
 
-    git archive eace971 feddlib_tpu_torch/csrc | tar -x -C .scratch/parent
+    mkdir -p .scratch/parent
+    git archive de706d9 feddlib_tpu_torch/csrc | tar -x -C .scratch/parent
     python3 kernel_ab.py \\
         --build parent=.scratch/parent/feddlib_tpu_torch/csrc --build change
 
@@ -25,6 +30,7 @@ Prints one line per time and writes them all to chiprun_out/kernel_ab.json.
 """
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -40,6 +46,12 @@ from feddlib_tpu_torch.la import _cuda  # noqa: E402
 from feddlib_tpu_torch.la import dense_kernels as dk  # noqa: E402
 from feddlib_tpu_torch.la import sell as sl  # noqa: E402
 from feddlib_tpu_torch.solvers import linear  # noqa: E402
+
+# B5's C entry in builds older than the sliced layout: the planes
+_P = ctypes.c_void_p
+_PLANES_B5 = {"fedd_block_sell_spmv_f32": [
+    _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, _P]}
 
 
 def main(argv=None):
@@ -63,7 +75,7 @@ def main(argv=None):
     for spec in args.build:
         name, _, path = spec.partition("=")
         path = os.path.abspath(path) if path else _cuda.CSRC_DIR
-        builds.append((name, _cuda.load(_cuda.build(path))))
+        builds.append((name, _cuda.load(_cuda.build(path), _PLANES_B5)))
         print(f"built {name} from {path}", flush=True)
     order = builds + builds[::-1]
     g = torch.Generator(device=dev).manual_seed(0)
@@ -76,14 +88,16 @@ def main(argv=None):
         print(f"  {kernel} [{shape}] {build}: {ms:.5f} ms {more}",
               flush=True)
 
-    def turns(kernel, shape, fn, check=None):
+    def turns(kernel, shape, fn, check=None, per_build=False):
         """fn() under each build in the order A B .. B A; `fn` is one call
-        or a list of calls taken in turn (cs._cold_calls)."""
+        or a list of calls taken in turn (cs._cold_calls), or with
+        `per_build` a function of the build's library that gives one."""
         for name, lib in order:
             _cuda.use(lib)
-            first = fn[0] if isinstance(fn, list) else fn
+            f = fn(lib) if per_build else fn
+            first = f[0] if isinstance(f, list) else f
             extra = {"rel_err": check(first())} if check else {}
-            record(kernel, shape, name, cs._device_ms(torch, fn), **extra)
+            record(kernel, shape, name, cs._device_ms(torch, f), **extra)
 
     def rel(y, y0):
         return float((y - y0).abs().max() / y0.abs().max())
@@ -157,13 +171,12 @@ def main(argv=None):
         record("bound", shape, bound[1], bound[0])
         del Ac, split, x2d, y0
         torch.cuda.empty_cache()
-        if where == "main path":
-            P, R, W = db.P, db.R, db.R + db.G
-            for dt in (torch.bfloat16, torch.float32):
-                gemv_turns(
-                    torch.randn(P, R, W, generator=g, device=dev).to(dt),
-                    torch.randn(P, W, generator=g, device=dev))
-                torch.cuda.empty_cache()
+        P, R, W = db.P, db.R, db.R + db.G
+        for dt in ((torch.bfloat16, torch.float32) if where == "main path"
+                   else (torch.float32,)):
+            gemv_turns(torch.randn(P, R, W, generator=g, device=dev).to(dt),
+                       torch.randn(P, W, generator=g, device=dev))
+            torch.cuda.empty_cache()
         del db
 
     # -- the bench chain: B4 on its bf16 level-1 inverse, M(A(x)) ------------
@@ -175,11 +188,79 @@ def main(argv=None):
     turns("M(A(x))", f"bench chain n={size.n_bench}",
           lambda: bc.M_fn(bc.M_ops, bc.A_fn(bc.A_ops, xp)))
 
+    del bc, inv, xp
+    torch.cuda.empty_cache()
+    b5_turns(dev, size.n_elas, g, turns, record, rel)
+
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:
         json.dump({"card": card, "rows": rows}, f, indent=1)
     print(json.dumps({"card": card, "rows": len(rows)}))
     return 0
+
+
+def b5_turns(dev, n_elas, g, turns, record, rel):
+    """B5 on the residue of phase 5's operator: the sliced layout against
+    the planes, whichever a build reads, with the CSR yardstick and the
+    three bounds of chip_smoke.py."""
+    from feddlib_tpu_torch.la.dia import auto_spmv
+
+    prob = cs._linelas(torch, Domain.structured(3, n_elas,
+                                                device=dev).p2_domain(),
+                       {}, dev)
+    A = prob.bc_system().get_block(0, 0)
+    bs = auto_spmv(A, dtype=torch.float32, dofs_per_node=3).sell
+    del prob, A
+    lay, pl, d = bs.layout, bs.plan, bs.d
+    nn = bs.shape[0] // d
+    nx2 = (nn + 127) // 128
+    x2d = torch.randn(d * nx2, 128, generator=g, device=dev)
+    xp = x2d.reshape(d, -1)
+    n_planes = bs.vals.shape[0] * 8 * (128 // lay.E)
+    y0 = sl.block_sell_slices_plain(bs.hvals, pl.hcols, pl.slice_ptr,
+                                    pl.row_of, xp, nn)
+
+    def sliced(hv, hc, sp, ro):
+        return sl.block_sell_slices(hv, hc, sp, ro, xp, nn)
+
+    def make(lib, cold=False):
+        if hasattr(lib, "fedd_block_sell_slices_f32"):
+            fn, args = sliced, (bs.hvals, pl.hcols, pl.slice_ptr, pl.row_of)
+        else:
+            def fn(v, p, b):
+                y = torch.empty((d, n_planes), device=dev)
+                _cuda.check(lib.fedd_block_sell_spmv_f32(
+                    v.data_ptr(), p.data_ptr(), b.data_ptr(),
+                    x2d.data_ptr(), y.data_ptr(), v.shape[0], b.shape[1],
+                    lay.E, d, nx2, _cuda.stream_of(v)), "planes B5")
+                return y[:, :nn]
+            args = (bs.vals, lay.pidx, lay.bids)
+        if cold:
+            return cs._cold_calls(fn, *args)
+        return lambda: fn(*args)
+
+    stored = int((bs.vals != 0).sum())
+    shape = (f"P2 elasticity residue n={n_elas}: node_rows={nn} E={lay.E} "
+             f"slices={pl.slice_ptr.numel() - 1} sigma={sl.SORT_WINDOW} "
+             f"slots_per_occupied={pl.slots_per_occupied:.4f} "
+             f"stored_nonzeros={stored}")
+    turns("B5", shape, make, lambda y: rel(y, y0), per_build=True)
+    turns("B5 L2 cold", shape, lambda lib: make(lib, cold=True),
+          lambda y: rel(y, y0), per_build=True)
+    xcol = x2d.reshape(-1)
+    csr = cs._block_sell_to_torch_csr(torch, bs)
+    record("torch CSR", shape, "nonzero",
+           cs._device_ms(torch, lambda: csr @ xcol))
+    record("torch CSR L2 cold", shape, "nonzero",
+           cs._device_ms(torch, cs._cold_calls(lambda c: c @ xcol, csr)))
+    xy = 4 * d * nn * 2
+    for kind, n_bytes in (
+            ("planes", 4 * bs.vals.numel() + 2 * lay.pidx.numel()
+             + 4 * lay.bids.numel() + 4 * x2d.numel() + 4 * d * nn),
+            ("layout", 4 * bs.hvals.numel() + pl.nbytes() + xy),
+            ("any format", 4 * stored + 4 * pl.n_occupied + xy)):
+        record("bound", shape, kind,
+               cs._bound(n_bytes, 2 * stored, cs.PEAK_F32_S)[0])
 
 
 if __name__ == "__main__":

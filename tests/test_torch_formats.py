@@ -4,8 +4,10 @@ layout planes and plans (they are built by the same host code), applies
 within 1e-12 (f64) / 1e-5 (f32) relative of the scipy product — the sums run
 in another order, so they are not bit-equal — and the plain version of the
 block-SELL kernel within 1e-6 (f32) / 1e-14 (f64) of the JAX package's XLA
-reference of its TPU kernel.  Inputs come from numpy seeds and structured
-meshes only."""
+reference of its TPU kernel.  The port applies block-SELL through a sliced
+layout of its own (`SlicePlan`), checked entry by entry against the planes
+and applied within 1e-12 (f64) / 1e-5 (f32) of the JAX package's apply.
+Inputs come from numpy seeds and structured meshes only."""
 
 import inspect
 
@@ -180,6 +182,18 @@ def test_block_dia_forced_spill_is_exact():
 
 # -- (c) block-SELL ----------------------------------------------------------
 
+def _sliced_bytes(bt):
+    """What one apply of the port's block-SELL moves: the sliced layout,
+    x and y, the spill (the JAX package's count is of its planes)."""
+    pl, isz = bt.plan, bt.hvals.element_size()
+    b = (bt.hvals.numel() * isz + pl.hcols.numel() * 4
+         + pl.slice_ptr.numel() * 8 + pl.row_of.numel() * 4
+         + 2 * bt.shape[0] * isz)
+    if bt.spill_rows is not None:
+        b += bt.spill_rows.numel() * (8 + 2 * isz)
+    return b
+
+
 def _same_block_sell(bj, bt):
     assert bj.layout.E == bt.layout.E and bj.layout.K == bt.layout.K
     assert bt.vals.shape[1:] == (bt.d * bt.d, 8, 128)
@@ -191,7 +205,7 @@ def _same_block_sell(bj, bt):
     assert _same(bj.dof_slots, bt.dof_slots)
     for name in ("spill_rows", "spill_cols", "spill_vals", "spill_sel"):
         assert _same(getattr(bj, name), getattr(bt, name)), name
-    assert bj.hbm_bytes_per_apply() == bt.hbm_bytes_per_apply()
+    assert bt.hbm_bytes_per_apply() == _sliced_bytes(bt)
 
 
 def _x2d(x, nn, d, prec):
@@ -222,10 +236,15 @@ def test_block_sell_matches(kind, prec):
                                      torch.as_tensor(x2d), E, d)
     assert yt.shape == yj.shape
     assert _rel(yt.numpy(), yj) < (1e-14 if prec == "f64" else 1e-6)
-    # the wrapper takes the plain version for a CPU tensor
-    assert torch.equal(tsell.block_sell_spmv(
-        bt.vals, bt.layout.pidx, bt.layout.bids, torch.as_tensor(x2d), E, d),
-        yt)
+    # the sliced layout gives the same product; its wrapper takes the plain
+    # version for a CPU tensor
+    pl = bt.plan
+    xc = torch.as_tensor(x2d.reshape(d, -1))
+    ys = tsell.block_sell_slices_plain(bt.hvals, pl.hcols, pl.slice_ptr,
+                                       pl.row_of, xc, nn)
+    assert _rel(ys.numpy(), yt[:, :nn].numpy()) < APPLY_TOL[prec]
+    assert torch.equal(tsell.block_sell_slices(
+        bt.hvals, pl.hcols, pl.slice_ptr, pl.row_of, xc, nn), ys)
     # applies
     assert _rel(_apply(bt, x, prec), K @ x) < APPLY_TOL[prec]
     assert _rel(_apply(bt, x, prec), _apply(bj, x, prec)) < APPLY_TOL[prec]
@@ -261,6 +280,129 @@ def test_block_sell_refuses_non_blocked_patterns():
     assert tsell.BlockSellMatrix.from_csr(sp, 3, device="cpu") is None
     assert tsell.BlockSellMatrix.from_csr(sp, 1, device="cpu") is None
     assert tsell.BlockSellMatrix.from_csr(sp[:, :60], 3, device="cpu") is None
+
+
+# -- the sliced layout the card applies (SlicePlan, kernel B5) ---------------
+
+def _check_slices(bt, max_ratio=None):
+    """Every occupied slot of the planes appears once, with its value and
+    node column; row_of is a permutation, sorted by occupied length within
+    each window; padding entries hold column 0 and value 0."""
+    pl, lay, d = bt.plan, bt.layout, bt.d
+    n, E, C = lay.shape[0], lay.E, tsell.SLICE_ROWS
+    src = pl.src.numpy()
+    occ = lay.data_slots[lay.data_slots >= 0]
+    assert src.shape == (pl.hcols.shape[0], C)
+    assert np.array_equal(np.sort(src[src >= 0]), np.sort(occ))
+    row_of = pl.row_of.numpy()
+    assert pl.row_of.dtype == torch.int32 and pl.hcols.dtype == torch.int32
+    assert np.array_equal(np.sort(row_of), np.arange(n))
+    lens = np.bincount(occ // E, minlength=n)[row_of]
+    # slice s holds sorted rows s*C ..: rows of one window, longest first;
+    # it is as wide as its longest row, and the slices go widest first
+    widths = np.diff(pl.slice_ptr.numpy())
+    assert len(widths) == -(-n // C)
+    slen = np.zeros(len(widths) * C, np.int64)
+    slen[:n] = lens
+    assert np.array_equal(widths, slen.reshape(-1, C).max(1))
+    win = np.full(len(widths) * C, -1)
+    win[:n] = row_of // tsell.SORT_WINDOW
+    for sl_len, sl_win in zip(slen.reshape(-1, C), win.reshape(-1, C)):
+        assert (np.diff(sl_len) <= 0).all()
+        assert len(set(sl_win[sl_win >= 0])) == 1
+    assert (np.diff(widths[: n // C]) <= 0).all()
+    slice_of = np.repeat(np.arange(len(widths)), widths)
+    j = np.arange(len(src)) - pl.slice_ptr.numpy()[slice_of]
+    i = slice_of[:, None] * C + np.arange(C)
+    rows = np.full(len(widths) * C, -1)
+    rows[:n] = row_of
+    live = src >= 0
+    assert np.array_equal(live, j[:, None] < slen[i])
+    assert np.array_equal(src[live], (rows[i] * E + j[:, None])[live])
+    # values and columns are those of the source slot; padding is zero
+    hv = bt.hvals.numpy().transpose(0, 2, 1)            # [t, C, d*d]
+    planes = bt.vals.numpy().reshape(bt.vals.shape[0], d * d, -1)
+    f = src[live]
+    assert np.array_equal(hv[live], planes[f // 1024, :, f % 1024])
+    assert not hv[~live].any() and not pl.hcols.numpy()[~live].any()
+    p = lay.pidx.numpy().reshape(-1)[f].astype(np.int64)
+    cols = (lay.bids.numpy()[f // 1024, p >> 7].astype(np.int64) * 128
+            + (p & 127))
+    assert np.array_equal(pl.hcols.numpy()[live], cols)
+    if max_ratio is not None:
+        assert pl.slots_per_occupied <= max_ratio
+
+
+@pytest.mark.parametrize("kind,build", [
+    ("elas_p2_3_3", "from_csr"), ("elas_p2_2_6", "from_csr"),
+    ("elas_p2_3_8", "from_csr"), ("elas_p2_3_4", "carried"),
+    ("elas_p2_2_6", "carried_spill")])
+def test_block_sell_hopper_plan(kind, build):
+    """The sliced layout of BlockSellMatrix, built from CSR and carried
+    from JAX; at >= 4,096 node rows it stores <= 1.25 slots per occupied
+    slot (the E-padded planes store 3x)."""
+    K, d = _matrix(kind)
+    if build == "from_csr":
+        bt = tsell.BlockSellMatrix.from_csr(K, d, dtype=torch.float32,
+                                            device="cpu")
+    else:
+        bj = jsell.BlockSellMatrix.from_csr(
+            K, d, dtype=jnp.float32, K=1 if build == "carried_spill" else None)
+        bt = _carry_block_sell(bj, "f32")
+        assert (bt.spill_rows is not None) == (build == "carried_spill")
+        x = _x(K.shape[0])
+        assert _rel(_apply(bt, x, "f32"), _apply(bj, x, "f32")) < 1e-5
+    big = bt.layout.shape[0] >= 4096
+    assert big == (kind == "elas_p2_3_8")
+    _check_slices(bt, 1.25 if big else None)
+    assert tsell.slice_plan(bt.layout) is bt.plan
+
+
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("kind,Kwin", [
+    ("elas_p2_3_3", None), ("elas_p2_3_4", None), ("elas_p2_2_6", None),
+    ("elas_p2_3_3", 2), ("elas_p2_2_6", 1)])
+def test_block_sell_slices_plain_matches_jax(kind, Kwin, prec):
+    """block_sell_slices_plain plus the spill against the JAX package's
+    _block_sell_apply (its XLA reference of the TPU kernel on the CPU)."""
+    K, d = _matrix(kind)
+    bj = jsell.BlockSellMatrix.from_csr(K, d, dtype=JDT[prec], K=Kwin)
+    bt = tsell.BlockSellMatrix.from_csr(K, d, dtype=TDT[prec], K=Kwin,
+                                        device="cpu")
+    assert (bt.spill_rows is not None) == (Kwin is not None)
+    nn = K.shape[0] // d
+    xc = np.ascontiguousarray(_x(K.shape[0], 5).astype(NDT[prec])
+                              .reshape(nn, d).T)
+    yj = np.asarray(jsell._block_sell_apply(
+        bj.vals, bj.layout.pidx, bj.layout.bids, bj.spill_rows,
+        bj.spill_cols, bj.spill_vals, jnp.asarray(xc), nn, d, bj.layout.E))
+    pl, xt = bt.plan, torch.as_tensor(xc)
+    y = tsell.block_sell_slices_plain(bt.hvals, pl.hcols, pl.slice_ptr,
+                                      pl.row_of, xt, nn)
+    if bt.spill_rows is not None:
+        y = y.reshape(-1).index_add(
+            0, bt.spill_rows, bt.spill_vals * xt.reshape(-1)[bt.spill_cols])
+    assert _rel(y.reshape(d, nn).numpy(), yj) < (1e-12 if prec == "f64"
+                                                 else 1e-5)
+    fn, ops = bt.planar_operator()
+    assert _rel(fn(ops, xt).numpy(), yj) < (1e-12 if prec == "f64" else 1e-5)
+
+
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("kind,Kwin", [("elas_p2_3_4", None),
+                                       ("elas_p2_3_3", 2)])
+def test_block_sell_with_data_through_sliced_layout(kind, Kwin, prec):
+    """with_data(3 * data) keeps the plan and gathers the new planes."""
+    K, d = _matrix(kind)
+    bt = tsell.BlockSellMatrix.from_csr(K, d, dtype=TDT[prec], K=Kwin,
+                                        device="cpu")
+    b3 = bt.with_data(torch.as_tensor(K.data * 3.0))
+    assert b3.plan is bt.plan
+    assert torch.equal(b3.hvals, bt.plan.gather(b3.vals))
+    assert _rel(b3.hvals.numpy(), 3.0 * bt.hvals.numpy()) < (
+        1e-15 if prec == "f64" else 1e-7)
+    x = _x(K.shape[0], 6)
+    assert _rel(_apply(b3, x, prec), 3.0 * (K @ x)) < APPLY_TOL[prec]
 
 
 # -- SELL additions: RCM order and rectangular matrices ----------------------
@@ -314,7 +456,12 @@ def test_auto_spmv_dispatch_matches(kind, prec):
     ft = tdia.auto_spmv(K, dtype=TDT[prec], dofs_per_node=d, device="cpu")
     assert type(ft).__name__ == type(fj).__name__
     assert type(ft).__name__ == AUTO_CASES[kind][prec == "f64"]
-    assert fj.hbm_bytes_per_apply() == ft.hbm_bytes_per_apply()
+    # the same bytes, but a block-SELL residue's are those of the port's
+    # sliced layout
+    bytes_j = fj.hbm_bytes_per_apply()
+    if isinstance(getattr(ft, "sell", None), tsell.BlockSellMatrix):
+        bytes_j += _sliced_bytes(ft.sell) - fj.sell.hbm_bytes_per_apply()
+    assert bytes_j == ft.hbm_bytes_per_apply()
     x = _x(K.shape[0])
     assert _rel(_apply(ft, x, prec), K @ x) < APPLY_TOL[prec]
     assert _rel(_apply(ft, x, prec), _apply(fj, x, prec)) < APPLY_TOL[prec]

@@ -6,7 +6,7 @@ PyTorch alone:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: B1 bit-exact (a gather); B2 and B5 1e-6 and B3/B4 1e-5 relative
-to max|y| (f32 sums in another order)."""
+to max|y| (f32 sums in another order).  B3 stores reach 2.7 GB."""
 
 import numpy as np
 import pytest
@@ -169,12 +169,31 @@ def _block_matrix(nn, d, per_row, seed):
     return A
 
 
+def _hold_b5(B, x2d):
+    """B5 on the sliced layout against its plain version (1e-6 of max|y|)
+    and against the plain version on the planes; one launch."""
+    lay, pl, d = B.layout, B.plan, B.d
+    nn = B.shape[0] // d
+    x = x2d.reshape(d, -1)
+    before = _cuda.launch_counts["block_sell_spmv"]
+    y = sell.block_sell_slices(B.hvals, pl.hcols, pl.slice_ptr, pl.row_of, x,
+                               nn)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["block_sell_spmv"] == before + 1
+    y0 = sell.block_sell_slices_plain(B.hvals, pl.hcols, pl.slice_ptr,
+                                      pl.row_of, x, nn)
+    assert y.shape == y0.shape == (d, nn)
+    assert _rel(y, y0) < 1e-6
+    yp = sell.block_sell_spmv_plain(B.vals, lay.pidx, lay.bids, x2d, lay.E, d)
+    assert _rel(y, yp[:, :nn]) < 1e-6
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d,E,nn,per_row,K", [
-    (3, 16, 3000, 9, None),      # T = 16: two rows per warp
+    (3, 16, 3000, 9, None),
     (2, 16, 140000, 5, None),    # 2,188 chunks: above the TPU's launch limit
-    (3, 64, 20000, 40, None),    # T = 32, two trips per row
-    (2, 128, 20000, 70, None),   # 2,500 chunks, four trips per row
+    (3, 64, 20000, 40, None),
+    (2, 128, 20000, 70, None),   # rows up to 70 slots
     (3, 64, 5000, 40, 2),        # spill through a small K
     (2, 16, 5000, 9, 1),         # spill, d = 2
     (4, 32, 2000, 20, None),     # d outside the unrolled cases
@@ -186,21 +205,44 @@ def test_b5_block_sell_on_card(hopper, d, E, nn, per_row, K):
                                       device=hopper)
     assert B is not None and B.layout.E == E
     assert (B.spill_rows is not None) == (K is not None)
-    lay = B.layout
     nx2 = (nn + 127) // 128
-    x2d = torch.randn(d * nx2, 128, device=hopper)
-    before = _cuda.launch_counts["block_sell_spmv"]
-    y = sell.block_sell_spmv(B.vals, lay.pidx, lay.bids, x2d, E, d)
-    torch.cuda.synchronize()
-    assert _cuda.launch_counts["block_sell_spmv"] == before + 1
-    y0 = sell.block_sell_spmv_plain(B.vals, lay.pidx, lay.bids, x2d, E, d)
-    assert y.shape == y0.shape == (d, B.vals.shape[0] * 8 * (128 // E))
-    assert _rel(y, y0) < 1e-6
+    _hold_b5(B, torch.randn(d * nx2, 128, device=hopper))
     x = torch.randn(A.shape[0], device=hopper)
     ref = torch.as_tensor(A @ x.cpu().double().numpy(), device=hopper)
     assert _rel(B.matvec(x).double(), ref) < 1e-5
     B2 = B.with_data(torch.as_tensor(A.data * 2.0, device=hopper))
     assert _rel(B2.matvec(x).double(), 2.0 * ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,nn", [(3, 1001), (2, 77), (3, 5)])
+def test_b5_ragged_slices_and_empty_rows_on_card(hopper, d, nn):
+    """Row counts that are not a multiple of 32, rows with no entries (and
+    a last slice of zero width), against scipy in f64."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(nn)
+    lens = rng.integers(0, 12, nn)
+    lens[::7] = 0
+    lens[-min(nn, 40):] = 0
+    rows = np.repeat(np.arange(nn), lens)
+    cols = np.clip(rows + rng.integers(-50, 51, rows.size), 0, nn - 1)
+    P = sps.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(nn, nn))
+    A = sps.kron(P, np.ones((d, d))).tocsr()
+    A.sort_indices()
+    A.data = rng.standard_normal(A.nnz)
+    B = sell.BlockSellMatrix.from_csr(A, d, dtype=torch.float32,
+                                      device=hopper)
+    widths = B.plan.slice_ptr.diff()
+    assert int(widths[-1]) == 0 and B.plan.row_of.numel() % 32 != 0
+    nx2 = (nn + 127) // 128
+    _hold_b5(B, torch.randn(d * nx2, 128, device=hopper))
+    x = torch.randn(A.shape[0], device=hopper)
+    ref = torch.as_tensor(A @ x.cpu().double().numpy(), device=hopper)
+    y = B.matvec(x)
+    assert _rel(y.double(), ref) < 1e-5
+    empty = np.flatnonzero(np.diff(A.indptr) == 0)
+    assert len(empty) and float(y[torch.as_tensor(empty)].abs().max()) == 0
 
 
 @pytest.mark.gpu
@@ -265,6 +307,52 @@ def test_b3_b4_gemv_on_card(hopper, P, R, W):
     torch.cuda.synchronize()
 
 
+# B3 at R x W, P the largest of 512, 128 and 1 whose store stays under
+# 3 GB, and at P = 1
+_B3_CASES = sorted({(P, R, W) for R in (1, 9, 544, 1624)
+                    for W in (4, 1064, 3256, 4104)
+                    for P in (1, next(p for p in (512, 128, 1)
+                                      if 4 * p * R * W < 3e9))})
+
+
+def _hold_b3(blocks, xs):
+    before = _cuda.launch_counts["dense_gemv_f32"]
+    y = dk.dense_block_mv(blocks, xs)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["dense_gemv_f32"] == before + 1
+    y0 = dk.dense_block_mv_plain(blocks, xs)
+    assert y.shape == y0.shape == blocks.shape[:2]
+    assert _rel(y, y0) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,R,W", _B3_CASES)
+def test_b3_gemv_rows_and_widths_on_card(hopper, P, R, W):
+    g = torch.Generator(device=hopper).manual_seed(P * 31 + R * 7919 + W)
+    _hold_b3(torch.randn(P, R, W, generator=g, device=hopper),
+             torch.randn(P, W, generator=g, device=hopper))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,R,W,offset,x_offset", [
+    (4, 40, 1001, 0, 0),     # W % 4 != 0: the general kernel
+    (3, 9, 31, 0, 0),
+    (4, 136, 376, 1, 0),     # a store 4 bytes past a 16-byte boundary
+    (2, 544, 1064, 2, 0),
+    (4, 136, 376, 0, 1),     # x 4 bytes past a 16-byte boundary
+    (1, 20000, 16000, 0, 0),  # rows too long for the ring's stages
+])
+def test_b3_gemv_general_kernel_on_card(hopper, P, R, W, offset, x_offset):
+    g = torch.Generator(device=hopper).manual_seed(P + R + W + offset)
+    buf = torch.randn(offset + P * R * W, generator=g, device=hopper)
+    blocks = buf[offset:].view(P, R, W)
+    xbuf = torch.randn(x_offset + P * W, generator=g, device=hopper)
+    xs = xbuf[x_offset:].view(P, W)
+    assert (blocks.data_ptr() % 16 != 0) == (offset > 0)
+    assert (xs.data_ptr() % 16 != 0) == (x_offset > 0)
+    _hold_b3(blocks, xs)
+
+
 def _hold_b4(blocks, xs):
     before = _cuda.launch_counts["dense_gemv_bf16"]
     y = dk.dense_block_mv_lowp(blocks, xs)
@@ -312,15 +400,19 @@ def test_wrappers_reject_bad_inputs(hopper):
     with pytest.raises(ValueError):
         dk.dense_block_mv(torch.randn(2, 3, 4, device=hopper),
                           torch.randn(2, 5, device=hopper))
-    vals = torch.zeros(2, 9, 8, 128, device=hopper)
-    pidx = torch.zeros(2, 8, 128, dtype=torch.int16, device=hopper)
-    bids = torch.zeros(2, 1, dtype=torch.int32, device=hopper)
-    with pytest.raises(ValueError):  # 9 planes are d = 3, not 2
-        sell.block_sell_spmv(vals, pidx, bids,
-                             torch.zeros(2, 128, device=hopper), 16, 2)
+    hvals = torch.zeros(2, 9, 32, device=hopper)
+    hcols = torch.zeros(2, 32, dtype=torch.int32, device=hopper)
+    ptr = torch.tensor([0, 2], device=hopper)
+    row_of = torch.arange(20, dtype=torch.int32, device=hopper)
+    with pytest.raises(ValueError):  # 9 block entries are d = 3, not 2
+        sell.block_sell_slices(hvals, hcols, ptr, row_of,
+                               torch.zeros(2, 128, device=hopper), 20)
     with pytest.raises(TypeError):
-        sell.block_sell_spmv(vals.double(), pidx, bids,
-                             torch.zeros(3, 128, device=hopper), 16, 3)
+        sell.block_sell_slices(hvals.double(), hcols, ptr, row_of,
+                               torch.zeros(3, 128, device=hopper), 20)
+    with pytest.raises(ValueError):  # 40 rows need two slices
+        sell.block_sell_slices(hvals, hcols, ptr, row_of.repeat(2),
+                               torch.zeros(3, 128, device=hopper), 40)
 
 
 @pytest.mark.gpu
