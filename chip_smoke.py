@@ -15,8 +15,10 @@ exits non-zero):
      inverse cast to bf16, 0.59 GB, beyond the L2), timed beside a one-call
      PyTorch yardstick and the card's bound for the same work; the SELL
      kernels (B2, B5) beside two CSR calls, one over the nonzero values and
-     one over every stored entry; B2 and its CSR calls also with their
-     inputs out of L2 (cycled copies), as the solve finds them;
+     one over every stored entry; B1, B2 and their library calls also with
+     their inputs out of L2 (cycled copies), as the solve finds them (B1 at
+     phases 5 and 6 too); the time of an empty launch, the floor of every
+     time taken this way, is printed as launch_floor_ms;
   4. the bench-chain configuration at Domain.structured(3, 40) (68,921
      dofs): additive two-level Schwarz with bf16 level-1 and coarse stores,
      the M(A(x)) apply time, and the refinement to 1e-8 (B4 must launch);
@@ -393,7 +395,9 @@ def main(argv=None):
                 for k, v in val.items()), flush=True)
 
     def hold_b1(where, idx, n_in, launches):
-        """B1 against its plain version and the x[idx] yardstick."""
+        """B1 against its plain version and the x[idx] yardstick, back to
+        back and with x and the plan out of L2 (between two ghost fetches
+        of a solve, B3's level-1 stream passes through the L2)."""
         x = torch.randn(n_in, generator=g, device=dev)
         y_k = pm.permute_gather(x, idx)
         y_p = pm.permute_gather_plain(x, idx)
@@ -402,14 +406,24 @@ def main(argv=None):
         x_ext = torch.cat([x, x.new_zeros(1)])
         idx_lib = torch.where(idx < 0, n_in, idx).long()
         _check(torch.equal(x_ext[idx_lib], y_p), f"B1 yardstick{where}")
-        print(f"B1 shapes{where}: n_in={n_in} n_out={idx.numel()}")
+        print(f"B1 shapes{where}: n_in={n_in} n_out={idx.numel()} "
+              f"ragged end={idx.numel() % 64} (outputs past the last whole "
+              f"warp tile of 64)")
+
+        def lib_call(x_ext, idx_lib):
+            return x_ext[idx_lib]
+
+        cold = {"ms": _device_ms(torch, _cold_calls(pm.permute_gather, x,
+                                                    idx)),
+                "library_ms": _device_ms(
+                    torch, _cold_calls(lib_call, x_ext, idx_lib))}
         entry("B1 permute_gather" + where,
               "feddlib_tpu_torch/csrc/permute.cu",
               "feddlib_tpu/la/permute.py:206", launches, 0.0,
               _device_ms(torch, lambda: pm.permute_gather(x, idx)),
               _device_ms(torch, lambda: pm.permute_gather_plain(x, idx)),
               _bound(4 * n_in + 8 * idx.numel(), 0, PEAK_F32_S),
-              _device_ms(torch, lambda: x_ext[idx_lib]))
+              _device_ms(torch, lambda: lib_call(x_ext, idx_lib)), cold=cold)
         return x
 
     def hold_b123(where, db, split, prec, counts):
@@ -487,6 +501,11 @@ def main(argv=None):
                      PEAK_F32_S),
               _device_ms(torch, lambda: torch.bmm(inv, xs.unsqueeze(-1))))
 
+    # the least time of any launch under _device_ms: an empty one-block
+    # kernel, back to back (not a kernel of the port; not in the last line)
+    floor_ms = _device_ms(torch, lambda: torch.cuda._sleep(0))
+    print(f"launch_floor_ms={floor_ms:.5f} (torch.cuda._sleep(0), one block, "
+          f"back to back: the floor of every kernel time below)", flush=True)
     hold_b123("", db, split, prec, counts2)
 
     # B4 at a store beyond the 50 MB L2, a stress shape off every path:

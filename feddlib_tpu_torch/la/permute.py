@@ -5,7 +5,8 @@ ghost fetch of the dense-block level 1 and of the padded SpMV).  The JAX
 package (feddlib_tpu/la/permute.py) turns each plan into 128-lane windows
 for its TPU kernel; on the card every thread can load any address, so the
 plan here is the flat int32 index vector itself and the kernel
-(csrc/permute.cu) writes one output per thread.
+(csrc/permute.cu) gives each warp a tile of consecutive outputs, in at most
+one wave, launched so that it starts while the kernel ahead of it drains.
 
 `permute_gather` launches the kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; the result is bit-identical either way.

@@ -5,6 +5,11 @@ Each build is a directory of CUDA sources with the C entries of
 feddlib_tpu_torch/csrc/, for example an older commit's csrc/ unpacked in a
 git-ignored directory.  At the shapes of chip_smoke.py's default run
 (its own helpers build the operators), it times:
+  - B1 at the ghost fetches of the Laplace main path and of the P1
+    elasticity solve and at the entry and exit gathers of the P2 elasticity
+    operator's split, back to back and with x and the plan out of L2, and
+    the operator applies it runs in (the padded A(x) of both solves, the
+    split apply), where it follows its real predecessor;
   - B2 on the padded SELL operator of the Laplace main path and of the P1
     elasticity solve, back to back and with the planes out of L2;
   - B3 at the level-1 shapes of both solves, and B4 at the main path's
@@ -17,15 +22,18 @@ git-ignored directory.  At the shapes of chip_smoke.py's default run
     with only fedd_block_sell_spmv_f32 reads the planes (the same operator);
 with the builds in the order A B .. B A, each a median of calls queued
 behind a spin kernel (chip_smoke._device_ms), and beside them the one-call
-PyTorch yardsticks and the byte bounds.  Each build's output is also held
-against the plain version.  Run from the repository root on the card:
+PyTorch yardsticks, the byte bounds and the time of an empty launch.  Each
+build's output is also held against the plain version.  Run from the
+repository root on the card:
 
     mkdir -p .scratch/parent
-    git archive de706d9 feddlib_tpu_torch/csrc | tar -x -C .scratch/parent
+    git archive a82472c feddlib_tpu_torch/csrc | tar -x -C .scratch/parent
     python3 kernel_ab.py \\
         --build parent=.scratch/parent/feddlib_tpu_torch/csrc --build change
 
---build NAME[=DIR]; DIR defaults to feddlib_tpu_torch/csrc.
+--build NAME[=DIR]; DIR defaults to feddlib_tpu_torch/csrc.  --kernels
+picks the kernels to time (default B1,B2,B3,B4,B5; B4 brings the bench
+chain's M(A(x))).
 Prints one line per time and writes them all to chiprun_out/kernel_ab.json.
 """
 
@@ -44,6 +52,7 @@ import chip_smoke as cs  # noqa: E402
 from feddlib_tpu_torch.fe.domain import Domain  # noqa: E402
 from feddlib_tpu_torch.la import _cuda  # noqa: E402
 from feddlib_tpu_torch.la import dense_kernels as dk  # noqa: E402
+from feddlib_tpu_torch.la import permute as pm  # noqa: E402
 from feddlib_tpu_torch.la import sell as sl  # noqa: E402
 from feddlib_tpu_torch.solvers import linear  # noqa: E402
 
@@ -58,7 +67,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--build", action="append", required=True,
                     help="NAME[=DIR]")
+    ap.add_argument("--kernels", default="B1,B2,B3,B4,B5",
+                    help="comma-separated kernels to time")
     args = ap.parse_args(argv)
+    want = set(args.kernels.split(","))
     size = cs._parser().parse_args([])
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device visible", file=sys.stderr)
@@ -123,21 +135,48 @@ def main(argv=None):
                           cs.PEAK_BF16_S if esz == 2 else cs.PEAK_F32_S)
         record("bound", shape, bound[1], bound[0])
 
-    # -- B2 at the main path's and the elasticity solve's shapes; B4 and B3
-    # at the main path's level-1 shape --------------------------------------
-    ops = (("main path", lambda: cs._laplace(torch, size.n, size.clusters,
-                                             dev), size.clusters),
-           ("elasticity solve", lambda: cs._linelas(
-               torch, Domain.structured(3, size.n_solve, device=dev), {},
-               dev), size.solve_clusters))
-    for where, make, clusters in ops:
-        prob = make()
-        A = prob.bc_system().get_block(0, 0)
-        mesh = prob.domains[0].mesh
-        db, split = linear.point_cluster_operators(
-            A, mesh.points, clusters, A.shape[0] // mesh.n_points)
-        Ac = split.Ac
-        del prob, A
+    def b1_turns(where, idx, n_in):
+        """B1 on one plan, back to back and out of L2, beside x[idx]."""
+        x = torch.randn(n_in, generator=g, device=dev)
+        y0 = pm.permute_gather_plain(x, idx)
+        shape = f"{where}: n_in={n_in} n_out={idx.numel()}"
+
+        def lib_call(x_ext, idx_lib):
+            return x_ext[idx_lib]
+
+        b1 = pm.permute_gather
+        turns("B1", shape, lambda: b1(x, idx), lambda y: rel(y, y0))
+        turns("B1 L2 cold", shape, cs._cold_calls(b1, x, idx),
+              lambda y: rel(y, y0))
+        x_ext = torch.cat([x, x.new_zeros(1)])
+        idx_lib = torch.where(idx < 0, n_in, idx).long()
+        record("x[idx]", shape, "library",
+               cs._device_ms(torch, lambda: lib_call(x_ext, idx_lib)))
+        record("x[idx] L2 cold", shape, "library", cs._device_ms(
+            torch, cs._cold_calls(lib_call, x_ext, idx_lib)))
+        record("bound", shape, "bytes",
+               cs._bound(4 * n_in + 8 * idx.numel(), 0, cs.PEAK_F32_S)[0])
+        # what the plan's scatter costs: the same sizes with an identity
+        # plan (every gather instruction reads 128 contiguous bytes), and
+        # the 32-byte sectors of x that the plan's gather instructions (32
+        # consecutive outputs each) touch, against x's own
+        n = idx.numel()
+        ident = torch.arange(n, dtype=torch.int32, device=dev) % n_in
+        turns("B1 identity plan", shape, lambda: b1(x, ident))
+        pad = torch.full((-n % 32,), -1, dtype=idx.dtype, device=dev)
+        sec = torch.cat([idx, pad]).reshape(-1, 32).long() // 8
+        sec = torch.where(sec < 0, -1, sec).sort(dim=1).values
+        distinct = ((sec[:, 1:] != sec[:, :-1]) & (sec[:, 1:] >= 0)).sum()
+        distinct = int(distinct + (sec[:, 0] >= 0).sum())
+        ratio = distinct / -(-n_in // 8)
+        rows.append({"kernel": "x sectors", "shape": shape,
+                     "sector_bytes": 32 * distinct, "ratio_to_x": ratio})
+        print(f"  x sectors [{shape}]: {32 * distinct} bytes, {ratio:.3f} "
+              f"x the sectors of x", flush=True)
+
+    def b2_turns(where, Ac):
+        """B2 on one padded SELL operator, back to back and out of L2,
+        beside the two CSR calls."""
         nx2 = (Ac.shape[1] + 127) // 128
         x2d = torch.randn(nx2, 128, generator=g, device=dev)
         slots = Ac.vals.numel()
@@ -169,28 +208,79 @@ def main(argv=None):
         bound = cs._bound(6 * slots + 4 * Ac.bids.numel() + 4 * x2d.numel()
                           + 4 * (slots // Ac.E), 2 * nonzero, cs.PEAK_F32_S)
         record("bound", shape, bound[1], bound[0])
-        del Ac, split, x2d, y0
+
+    if "B1" in want:
+        record("launch floor", "torch.cuda._sleep(0)", "empty launch",
+               cs._device_ms(torch, lambda: torch.cuda._sleep(0)))
+
+    # -- B1 and B2 at the main path's and the elasticity solve's shapes; B4
+    # and B3 at the main path's level-1 shape --------------------------------
+    ops = (("main path", lambda: cs._laplace(torch, size.n, size.clusters,
+                                             dev), size.clusters),
+           ("elasticity solve", lambda: cs._linelas(
+               torch, Domain.structured(3, size.n_solve, device=dev), {},
+               dev), size.solve_clusters))
+    for where, make, clusters in ops:
+        prob = make()
+        A = prob.bc_system().get_block(0, 0)
+        mesh = prob.domains[0].mesh
+        db, split = linear.point_cluster_operators(
+            A, mesh.points, clusters, A.shape[0] // mesh.n_points)
+        Ac = split.Ac
+        del prob, A
+        if "B1" in want:
+            b1_turns(where, db.ghost_plan[0], db.P * db.R)
+            # the padded A(x): B1, then B2; in a loop B1 follows B2
+            fn, fops = split.operator()
+            xa = torch.randn(db.P * db.R, generator=g, device=dev)
+            turns("A(x) apply", where, lambda: fn(fops, xa))
+        if "B2" in want:
+            b2_turns(where, Ac)
+        del Ac, split
         torch.cuda.empty_cache()
         P, R, W = db.P, db.R, db.R + db.G
-        for dt in ((torch.bfloat16, torch.float32) if where == "main path"
-                   else (torch.float32,)):
+        gemv = [torch.float32] if "B3" in want else []
+        if "B4" in want and where == "main path":
+            gemv.insert(0, torch.bfloat16)
+        for dt in gemv:
             gemv_turns(torch.randn(P, R, W, generator=g, device=dev).to(dt),
                        torch.randn(P, W, generator=g, device=dev))
             torch.cuda.empty_cache()
         del db
 
     # -- the bench chain: B4 on its bf16 level-1 inverse, M(A(x)) ------------
-    bc = cs._bench_chain(torch, np, size.n_bench, size.bench_clusters, dev)
-    inv = bc.prec.level1.inv
-    gemv_turns(inv, torch.randn(inv.shape[0], inv.shape[2], generator=g,
-                                device=dev))
-    xp = torch.ones(bc.db.P * bc.db.R, device=dev)
-    turns("M(A(x))", f"bench chain n={size.n_bench}",
-          lambda: bc.M_fn(bc.M_ops, bc.A_fn(bc.A_ops, xp)))
+    if "B4" in want:
+        bc = cs._bench_chain(torch, np, size.n_bench, size.bench_clusters,
+                             dev)
+        inv = bc.prec.level1.inv
+        gemv_turns(inv, torch.randn(inv.shape[0], inv.shape[2], generator=g,
+                                    device=dev))
+        xp = torch.ones(bc.db.P * bc.db.R, device=dev)
+        turns("M(A(x))", f"bench chain n={size.n_bench}",
+              lambda: bc.M_fn(bc.M_ops, bc.A_fn(bc.A_ops, xp)))
+        del bc, inv, xp
+        torch.cuda.empty_cache()
 
-    del bc, inv, xp
-    torch.cuda.empty_cache()
-    b5_turns(dev, size.n_elas, g, turns, record, rel)
+    # -- the P2 elasticity operator's split: B1's gathers, B5's residue -------
+    if want & {"B1", "B5"}:
+        from feddlib_tpu_torch.la.dia import auto_spmv
+
+        prob = cs._linelas(torch, Domain.structured(
+            3, size.n_elas, device=dev).p2_domain(), {}, dev)
+        A = prob.bc_system().get_block(0, 0)
+        F = auto_spmv(A, dtype=torch.float32, dofs_per_node=3)
+        del prob, A
+        if "B1" in want:
+            where = f"P2 elasticity split n={size.n_elas}"
+            b1_turns(where + ", entry gather", F.gin.idx, F.gin.n_in)
+            b1_turns(where + ", exit gather", F.gout.idx, F.gout.n_in)
+            # the split apply: B1, block-DIA + B5 and their sum, B1
+            fn, fops = F.operator()
+            x5 = torch.randn(F.shape[0], generator=g, device=dev)
+            turns("split apply", where, lambda: fn(fops, x5))
+        if "B5" in want:
+            b5_turns(dev, F.sell, size.n_elas, g, turns, record, rel)
+        del F
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:
@@ -199,18 +289,10 @@ def main(argv=None):
     return 0
 
 
-def b5_turns(dev, n_elas, g, turns, record, rel):
-    """B5 on the residue of phase 5's operator: the sliced layout against
-    the planes, whichever a build reads, with the CSR yardstick and the
-    three bounds of chip_smoke.py."""
-    from feddlib_tpu_torch.la.dia import auto_spmv
-
-    prob = cs._linelas(torch, Domain.structured(3, n_elas,
-                                                device=dev).p2_domain(),
-                       {}, dev)
-    A = prob.bc_system().get_block(0, 0)
-    bs = auto_spmv(A, dtype=torch.float32, dofs_per_node=3).sell
-    del prob, A
+def b5_turns(dev, bs, n_elas, g, turns, record, rel):
+    """B5 on the residue `bs` of phase 5's operator: the sliced layout
+    against the planes, whichever a build reads, with the CSR yardstick and
+    the three bounds of chip_smoke.py."""
     lay, pl, d = bs.layout, bs.plan, bs.d
     nn = bs.shape[0] // d
     nx2 = (nn + 127) // 128

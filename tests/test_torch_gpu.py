@@ -34,17 +34,71 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n_in,n_out", [(5000, 3000), (128, 1), (1, 0)])
-def test_b1_permute_on_card(hopper, n_in, n_out):
-    rng = np.random.default_rng(n_in)
-    idx = rng.integers(-1, n_in, n_out).astype(np.int32)
-    x = torch.randn(n_in, device=hopper)
-    it = torch.as_tensor(idx, device=hopper)
+def _hold_b1(x, it):
     before = _cuda.launch_counts["permute_gather"]
     y = permute_gather(x, it)
+    torch.cuda.synchronize()
     assert _cuda.launch_counts["permute_gather"] == before + 1
+    assert y.shape == it.shape and y.dtype == torch.float32
     assert torch.equal(y, permute_gather_plain(x, it))
+    return y
+
+
+def _b1_case(device, n_in, n_out, seed):
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(-1, n_in, n_out).astype(np.int32)
+    x = rng.standard_normal(n_in).astype(np.float32)
+    return (torch.as_tensor(x, device=device),
+            torch.as_tensor(idx, device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_in,n_out", [
+    (5000, 3000), (128, 1), (1, 0),
+    # n_out % 4 = 1, 2, 3 and a last warp tile of outputs cut short
+    (5000, 2), (5000, 3), (5000, 5), (5000, 6), (5000, 7), (5000, 4001),
+    (5000, 4002), (5000, 4003), (823875, 823875),
+    # more warp tiles than one wave of CTAs holds: the grid-stride loop
+    (1_000_000, 3_000_003)])
+def test_b1_permute_on_card(hopper, n_in, n_out):
+    x, it = _b1_case(hopper, n_in, n_out, n_in + n_out)
+    _hold_b1(x, it)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_b1_unaligned_plan_on_card(hopper, offset):
+    """An idx view off 16-byte alignment (4, 8, 12 bytes)."""
+    x, buf = _b1_case(hopper, 5000, offset + 3001, offset)
+    it = buf[offset:]
+    assert it.data_ptr() % 16 != 0
+    _hold_b1(x, it)
+
+
+@pytest.mark.gpu
+def test_b1_unaligned_output_on_card(hopper):
+    """A y off 16-byte alignment, through the C entry (the wrapper always
+    allocates y itself); the element before y is not written."""
+    x, it = _b1_case(hopper, 5000, 4003, 7)
+    ybuf = torch.full((4004,), float("nan"), device=hopper)
+    y = ybuf[1:]
+    assert y.data_ptr() % 16 != 0
+    _cuda.check(_cuda.lib().fedd_permute_gather_f32(
+        x.data_ptr(), it.data_ptr(), y.data_ptr(), it.numel(),
+        _cuda.stream_of(x)), "permute_gather")
+    torch.cuda.synchronize()
+    assert torch.equal(y, permute_gather_plain(x, it))
+    assert torch.isnan(ybuf[0])
+
+
+@pytest.mark.gpu
+def test_b1_all_masked_on_card(hopper):
+    """idx = -1 everywhere gives zeros and reads no x (x is all NaN)."""
+    x = torch.full((1000,), float("nan"), device=hopper)
+    it = torch.full((4099,), -1, dtype=torch.int32, device=hopper)
+    y = _hold_b1(x, it)
+    assert not bool(y.any())
+
 
 
 @pytest.mark.gpu

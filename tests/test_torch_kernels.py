@@ -46,7 +46,10 @@ def _perm_case(kind, n_in, n_out, seed):
 
 @pytest.mark.parametrize("kind,n_in,n_out,seed", [
     ("local", 3000, 2000, 0), ("random", 5000, 3000, 1),
-    ("random", 200, 1000, 2), ("local", 700, 129, 3)])
+    ("random", 200, 1000, 2), ("local", 700, 129, 3),
+    # n_out % 4 = 1, 2, 3: the card kernel's ragged end after whole vectors
+    ("random", 5000, 3001, 4), ("local", 3000, 2002, 5),
+    ("random", 200, 1003, 6)])
 def test_b1_permute_bit_exact(kind, n_in, n_out, seed):
     idx, x = _perm_case(kind, n_in, n_out, seed)
     pj = JPG(idx, n_in)
