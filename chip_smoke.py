@@ -37,7 +37,26 @@ exits non-zero):
      Problem.solve (B1, B2 and B3 must launch, and each is held against
      its plain version at this solve's shapes); the same operator through
      auto_spmv must come out as block-DIA; a small Jacobi solve takes the
-     f64 Krylov path with the block-DIA apply.
+     f64 Krylov path with the block-DIA apply;
+  7. the f64 default path: Laplace on Domain.structured(3, 64) through
+     Problem.solve with the default 'Preconditioner Type' ('SchwarzTwoLevel':
+     f64 overlapping Schwarz with dense [P, S, S] subdomain inverses plus
+     the GDSW coarse level) on 512 subdomains, to 1e-8; the f64 residual on
+     the host, the setup seconds, one M(A(x)) apply (device and wall), the
+     level-1 and coarse applies beside their byte bounds; then the same
+     system with the sparse subdomain solves ('Subdomain Solver':
+     'sparse': the batched sparse LU and its wavefront sweeps) as level 1
+     under the same coarse level, within 2 iterations of the dense solve;
+     a small default solve on the card against the same on the CPU;
+  8. the 3D lid-driven cavity: NavierStokes on the P2/P1 pair of
+     Domain.structured(3, 12) (49,072 dofs), Newton to 1e-8 with 'Use
+     Mixed Precision', 'SchwarzOneLevel' and 64 dof-map clusters (the
+     balance=True branch of the mixed solve), each step's seconds split
+     into assembly / merge / format and factor setup / solve; the f64
+     residual of the last linear solve on the host; B1, B2 and B3 must
+     launch, and each is held against its plain version at this solve's
+     shapes; the golden small cavity (tests/test_goldens.py:71) through
+     the f64 two-level path on the card.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -58,6 +77,7 @@ import time
 # dense bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_F64_S = 67e12  # f64 on the tensor cores (34 TFLOP/s on the CUDA cores)
 PEAK_BF16_S = 989e12
 L2_BYTES = 50 * 2**20
 
@@ -224,8 +244,9 @@ def _block_sell_to_torch_csr(torch, bs, stored=False):
 
 def _sell_to_torch_csr(torch, sm, stored=False):
     """The SELL planes back to a torch CSR tensor (the B2 yardstick): the
-    nonzero values, or with `stored` every entry the matrix stores (zeros
-    included: the kernel's work without the padding)."""
+    nonzero values, or with `stored` every entry the planes store (zeros
+    included: the kernel's work without the padding).  Spill entries are
+    left out: `sell_op` adds them outside the kernel."""
     E = sm.E
     nch = sm.vals.shape[0]
     vals = sm.vals.reshape(-1)
@@ -241,14 +262,314 @@ def _sell_to_torch_csr(torch, sm, stored=False):
     else:
         keep = vals != 0
     rows, cols, vals = rows[keep], cols[keep], vals[keep]
-    if sm.spill_rows is not None:
-        rows = torch.cat([rows, sm.spill_rows])
-        cols = torch.cat([cols, sm.spill_cols])
-        vals = torch.cat([vals, sm.spill_vals])
     nx = (sm.shape[1] + 127) // 128 * 128
     coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
                                   (sm.shape[0], nx)).coalesce()
     return coo.to_sparse_csr()
+
+
+def _default_laplace(torch, n, params, device):
+    """Laplace on Domain.structured(3, n) with the repo's Dirichlet Poisson
+    data and the default preconditioner unless `params` names another."""
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.problems.laplace import Laplace
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    prob = Laplace(Domain.structured(3, n, device=device),
+                   parameter_list=ParameterList("P", dict(params)),
+                   device=device)
+    prob.assemble()
+    prob.assemble_source(lambda x: 1.0 + 0 * x[0])
+    prob.add_bc(lambda x, t: 0.0, 1, 0)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+def _phase7(torch, np, args, dev):
+    """The f64 default path (see the module docstring)."""
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond.gdsw import TwoLevelSchwarz
+    from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+    from feddlib_tpu_torch.solvers.krylov import solve
+    from feddlib_tpu_torch.solvers.linear import LinearSolver
+
+    t0 = time.perf_counter()
+    params = {"Subdomains": args.schwarz_parts,
+              "Convergence Tolerance": 1e-8}
+    prob = _default_laplace(torch, args.n_schwarz, params, dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter()
+    _cuda.reset_launch_counts()
+    iters = prob.solve()
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t_setup
+    u = prob.solution[0]
+    A = prob.bc_system().get_block(0, 0)
+    A_sp = A.to_scipy()
+    rel = _host_relres(np, A_sp, prob.rhs[0], u)
+    prec = prob.preconditioner.prec
+    _check(prob.parameter_list.get("Preconditioner Type",
+                                   "SchwarzTwoLevel") == "SchwarzTwoLevel"
+           and isinstance(prec, TwoLevelSchwarz), "default preconditioner")
+    l1 = prec.level1
+    _check(l1.solver == "dense" and l1.inv.dtype == torch.float64
+           and l1.inv.device.type == "cuda", "f64 dense level 1 on the card")
+    _check(u.dtype == torch.float64 and bool(torch.isfinite(u).all()),
+           "f64 finite solution")
+    print(f"f64 default path: n_dofs={A.shape[0]} nnz={A.nnz} "
+          f"P={l1.n_parts} S={l1.S} level1_bytes={l1.inv.numel() * 8} "
+          f"coarse_dim={prec.coarse.n_coarse}")
+    print(f"f64 default path: gmres_iters={iters} relres="
+          f"{prob.last_relres:.3e} host_f64_relres={rel:.3e} "
+          f"assembly_s={t_setup - t0:.3f} solve_s={t_solve:.3f} (setup "
+          f"inside: {prec.timings['level1_s']:.3f} level 1 = "
+          f"{l1.timings['overlap_s']:.3f} overlap + "
+          f"{l1.timings['factor_s']:.3f} host inverses and upload, "
+          f"{prec.timings['gdsw_s']:.3f} GDSW) launches="
+          f"{dict(_cuda.launch_counts)}", flush=True)
+    _check(rel <= 1e-8, f"f64 default path host residual {rel} > 1e-8")
+
+    # one M(A(x)) apply of the solve's operators, and its two levels
+    A_fn, A_ops = (LinearSolver()._auto_format_operator(
+        A, prob, prob.parameter_list) or A.operator())
+    M_fn, M_ops = prec.operator()
+    x = torch.randn(A.shape[0], dtype=torch.float64, device=dev)
+    ma_ms = _device_ms(torch, lambda: M_fn(M_ops, A_fn(A_ops, x)),
+                       samples=10, calls=5)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    y = x
+    for _ in range(20):
+        y = M_fn(M_ops, A_fn(A_ops, y))
+        y = y / torch.linalg.norm(y)
+    torch.cuda.synchronize()
+    ma_wall = (time.perf_counter() - tw) / 20 * 1e3
+    l1_fn, l1_ops = l1.operator()
+    P, S = l1.n_parts, l1.S
+    l1_ms = _device_ms(torch, lambda: l1_fn(l1_ops, x), samples=10, calls=5)
+    ov = torch.randn(P, S, dtype=torch.float64, device=dev)
+    gemv_ms = _device_ms(torch, lambda: torch.einsum("pij,pj->pi", l1.inv,
+                                                     ov), samples=10, calls=5)
+    A0i = prec.coarse.A0_inv
+    rc = torch.randn(A0i.shape[0], dtype=torch.float64, device=dev)
+    a0_ms = _device_ms(torch, lambda: A0i @ rc)
+    gemv_bound = _bound(8 * P * S * S + 16 * P * S, 2 * P * S * S,
+                        PEAK_F64_S)
+    a0_bound = _bound(8 * A0i.numel() + 16 * rc.numel(), 2 * A0i.numel(),
+                      PEAK_F64_S)
+    print(f"f64 default path: ma_apply_ms={ma_ms:.5f} (device) "
+          f"ma_apply_wall_ms={ma_wall:.5f} (host clock, 20 applies) "
+          f"level1_apply_ms={l1_ms:.5f} batched_gemv_ms={gemv_ms:.5f} "
+          f"(einsum over [{P}, {S}, {S}] f64, bound {gemv_bound[0]:.5f} "
+          f"{gemv_bound[1]}) coarse_A0inv_ms={a0_ms:.5f} ([{A0i.shape[0]}]^2 "
+          f"f64, bound {a0_bound[0]:.5f} {a0_bound[1]})", flush=True)
+    del l1, l1_ops, M_ops, M_fn, l1_fn, A0i, ov, y
+    prec.level1, prec._op = None, None
+    prob.preconditioner._op = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same system with the batched sparse LU subdomain solves: level 1
+    # rebuilt on the same dof map, the GDSW coarse level kept, and the
+    # f64 GMRES of LinearSolver.solve_system (tol 1e-8, restart 100)
+    part = MeshPartition(prob.domains[0].mesh, args.schwarz_parts)
+    t_s = time.perf_counter()
+    prec.level1 = SchwarzPreconditioner(
+        A, prob.preconditioner._merged_dof_map(part), solver="sparse")
+    M_fn, M_ops = prec.operator()
+    torch.cuda.synchronize()
+    t_s2 = time.perf_counter()
+    res = solve("gmres", A_fn, A_ops, prob.rhs[0], M_fn=M_fn, M_ops=M_ops,
+                tol=1e-8, maxiter=1000, restart=100)
+    torch.cuda.synchronize()
+    t_solve_s = time.perf_counter() - t_s2
+    iters_s = res.iters
+    rel_s = _host_relres(np, A_sp, prob.rhs[0], res.x)
+    slu = prec.level1.slu
+    _check(slu is not None and prec.level1.inv is None, "sparse level 1")
+    r_pad = torch.randn(slu.P, slu.S, dtype=torch.float64, device=dev)
+    slu_ms = _device_ms(torch, lambda: slu.solve(r_pad), samples=5, calls=2)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(5):
+        slu.solve(r_pad)
+    torch.cuda.synchronize()
+    slu_wall = (time.perf_counter() - tw) / 5 * 1e3
+    print(f"f64 sparse level 1: T_L={slu.T_L} R_L={slu.R_L} T_U={slu.T_U} "
+          f"R_U={slu.R_U} K_L={slu.K_L} K_U={slu.K_U} "
+          f"nnz_factors={slu.nnz_factors} plane_bytes={slu.nbytes()} "
+          f"gmres_iters={iters_s} (dense {iters}) host_f64_relres="
+          f"{rel_s:.3e} setup_s={t_s2 - t_s:.3f} (of which "
+          f"{prec.level1.timings['factor_s']:.3f} sparse LU and level "
+          f"planes) gmres_s={t_solve_s:.3f} "
+          f"sparse_lu_apply_ms={slu_ms:.5f} (device) "
+          f"sparse_lu_apply_wall_ms={slu_wall:.5f} (host clock) against "
+          f"batched_gemv_ms={gemv_ms:.5f}", flush=True)
+    _check(rel_s <= 1e-8, f"sparse solve host residual {rel_s} > 1e-8")
+    _check(abs(iters_s - iters) <= 2, "sparse vs dense iterations")
+    del prob, prec, slu, r_pad, M_fn, M_ops, A_fn, A_ops, res
+    # the small default solve on the card and on the CPU
+    small = {}
+    for d in ("cuda", "cpu"):
+        p = _default_laplace(torch, 8, {"Subdomains": 8}, d)
+        small[d] = (p.solve(), p.solution[0].cpu().numpy(), p.last_relres)
+    dsmall = float(np.abs(small["cuda"][1] - small["cpu"][1]).max())
+    print(f"small default solve cuda vs cpu: iters {small['cuda'][0]} vs "
+          f"{small['cpu'][0]}, max|du|={dsmall:.3e}")
+    _check(small["cuda"][2] <= 1e-8 and small["cpu"][2] <= 1e-8
+           and small["cuda"][0] == small["cpu"][0] and dsmall < 1e-10,
+           "small default solve cuda vs cpu")
+    _phase("7 f64 default path", t0)
+
+
+def _cavity(torch, n, params, device):
+    """The 3D lid-driven cavity: NavierStokes on the P2/P1 pair of
+    Domain.structured(3, n), the lid (u = e_0 on x_2 = 1) and no-slip walls
+    on flag 1, the physics of tests/test_goldens.py:71."""
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.problems.navier_stokes import NavierStokes
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    dom_p = Domain.structured(3, n, device=device)
+    prob = NavierStokes(dom_p.p2_domain(), dom_p, parameter_list=ParameterList(
+        "P", dict({"Viscosity": 0.1, "Density": 1.0, "relNonLinTol": 1e-8,
+                   "MaxNonLinIts": 12}, **params)), device=device)
+    prob.assemble()
+
+    def lid(x, t):
+        on = torch.isclose(x[2], torch.tensor(1.0, dtype=x.dtype,
+                                              device=x.device))
+        return torch.stack([on.double(), 0.0 * x[0], 0.0 * x[0]])
+
+    prob.add_bc(lid, 1, 0)
+    return prob
+
+
+def _phase8(torch, np, args, dev, hold_b123):
+    """The 3D cavity with Newton and mixed precision (see the module
+    docstring)."""
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.la.block import BlockMatrix
+    from feddlib_tpu_torch.la.dense_blocks import (DenseBlockSchwarz,
+                                                   DenseBlockSpMV)
+    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
+    from feddlib_tpu_torch.solvers import refinement
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+
+    t0 = time.perf_counter()
+    prob = _cavity(torch, args.n_ns, {
+        "Use Mixed Precision": True,
+        "Preconditioner Type": "SchwarzOneLevel",
+        "Clusters": args.ns_clusters, "Convergence Tolerance": 1e-8}, dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    # per-step seconds: wrap the problem's hooks, the merge, the three
+    # parts rebuilt every step (BlockMatrix.merge makes a new pattern, so
+    # the mixed solve's cache never hits): the dof-map clusters
+    # (DenseBlockSpMV.from_csr, rebalancing included), the padded SELL
+    # layout and the level-1 factor; and the refinement (the solve proper)
+    spent = {k: [] for k in ("assembly", "merge", "clusters", "sell",
+                             "factor", "setup_other", "solve")}
+    last = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    patched = [(BlockMatrix, "merge", "merge"),
+               (refinement, "iterative_refinement", "solve"),
+               (DenseBlockSchwarz, "__init__", "factor"),
+               (PaddedSplitSpMV, "__init__", "sell")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, key in patched:
+        setattr(obj, name, timed(key, getattr(obj, name)))
+    from_csr = DenseBlockSpMV.from_csr  # bound to the class
+    DenseBlockSpMV.from_csr = classmethod(
+        lambda cls, *a, **k: timed("clusters", from_csr)(*a, **k))
+    saved.append((DenseBlockSpMV, "from_csr", from_csr.__func__))
+    reassemble, residual = prob.reassemble, prob.calculate_residual
+    solve_system = prob.linear_solver.solve_system
+    prob.reassemble = timed("assembly", reassemble)
+    prob.calculate_residual = timed("assembly", residual)
+
+    def solve_and_keep(problem, b):
+        inside = ("merge", "clusters", "sell", "factor", "solve")
+        n0 = {k: len(spent[k]) for k in inside}
+        t = time.perf_counter()
+        x, its = solve_system(problem, b)
+        torch.cuda.synchronize()
+        spent["setup_other"].append(
+            time.perf_counter() - t
+            - sum(sum(spent[k][n0[k]:]) for k in inside))
+        last.update(b=b, x=x)
+        return x, its
+
+    prob.linear_solver.solve_system = solve_and_keep
+    _cuda.reset_launch_counts()
+    solver = NonLinearSolver("Newton")
+    t1 = time.perf_counter()
+    try:
+        its = solver.solve(prob)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, classmethod(fn) if name == "from_csr" else fn)
+    torch.cuda.synchronize()
+    t_newton = time.perf_counter() - t1
+    counts = dict(_cuda.launch_counts)
+    A_sp = prob.bc_system().merge().to_scipy()
+    rel = _host_relres(np, A_sp, last["b"].concat(), last["x"].concat())
+    cache = prob._mixed_cache
+    db, split, prec = cache["db32"], cache["sell"], cache["prec"]
+    u = prob.solution[0]
+    sizes = prob.block_sizes()
+    print(f"cavity: n_dofs={sum(sizes)} (u {sizes[0]}, p {sizes[1]}) "
+          f"nnz={A_sp.nnz} P={db.P} R={db.R} G={db.G} W={db.R + db.G} "
+          f"E={split.Ac.E} K={split.Ac.K} prec={type(prec).__name__}")
+    print(f"cavity: newton_its={its} final_criterion="
+          f"{solver.final_criterion:.3e} gmres_per_step={solver.linear_iters}"
+          f" last_linear_host_f64_relres={rel:.3e} assembly_s={t_asm:.3f} "
+          f"newton_s={t_newton:.3f}")
+    for k, v in spent.items():
+        print(f"cavity seconds per step, {k}: "
+              f"{[round(x, 3) for x in v]}", flush=True)
+    print(f"cavity launches: {counts} (per GMRES iteration: "
+          f"{ {k: round(v / max(sum(solver.linear_iters), 1), 2) for k, v in counts.items()} })",
+          flush=True)
+    _check(solver.final_criterion <= 1e-8 and its < 12,
+           f"Newton did not converge: {solver.final_criterion}")
+    _check(u.dtype == torch.float64 and bool(torch.isfinite(u).all()),
+           "cavity finite f64 velocity")
+    _check(rel <= 1e-8, f"cavity last linear solve host residual {rel}")
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        _check(counts[k] > 0, f"cavity launched no {k}")
+    hold_b123(" (cavity)", db, split, prec, counts)
+    del prob, cache, db, split, prec, u, A_sp, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the golden small cavity through the f64 two-level path on the card
+    prob = _cavity(torch, 3, {"Preconditioner Type": "SchwarzTwoLevel",
+                              "Subdomains": 4, "Convergence Tolerance": 1e-9,
+                              "Maximum Iterations": 2000}, dev)
+    solver = NonLinearSolver("Newton")
+    its = solver.solve(prob)
+    uu = prob.solution[0].cpu().numpy().reshape(-1, 3)
+    ke = 0.5 * float((uu ** 2).sum()) / len(uu)
+    print(f"golden cavity: newton_its={its} gmres_per_step="
+          f"{solver.linear_iters} kinetic_energy={ke!r} (goldens 3, "
+          f"[22, 23, 22], 0.07462684304806966)")
+    _check(its == 3 and all(abs(a - b) <= 2 for a, b in
+                            zip(solver.linear_iters, [22, 23, 22]))
+           and np.isclose(ke, 0.07462684304806966, rtol=1e-6),
+           "golden cavity")
+    _phase("8 cavity", t0)
 
 
 def _parser():
@@ -264,6 +585,15 @@ def _parser():
     ap.add_argument("--n-solve", type=int, default=40,
                     help="cells per side of the P1 elasticity solve cube")
     ap.add_argument("--solve-clusters", type=int, default=128)
+    ap.add_argument("--n-schwarz", type=int, default=64,
+                    help="cells per side of the f64 default-path cube")
+    ap.add_argument("--schwarz-parts", type=int, default=512)
+    # the cavity's dof-map clusters are rebalanced (rebalance_row_clusters),
+    # which widens the widest cluster's ghost set 5-6x: at 20 cells and 128
+    # clusters its [P, W, W] f32 level-1 blocks would take 203 GiB
+    ap.add_argument("--n-ns", type=int, default=12,
+                    help="cells per side of the cavity's pressure cube")
+    ap.add_argument("--ns-clusters", type=int, default=64)
     return ap
 
 
@@ -482,8 +812,9 @@ def main(argv=None):
               _device_ms(torch, lambda: mv(csr_st)), l2_cold=l2_cold)
         del csr, csr_st
 
-        # B3: the f32 level-1 inverse
-        inv = prec.level1.inv
+        # B3: the f32 level-1 inverse (of the two-level preconditioner, or
+        # the one-level DenseBlockSchwarz itself)
+        inv = getattr(prec, "level1", prec).inv
         P, R, W = inv.shape
         xs = torch.randn(P, W, generator=g, device=dev)
         y_k = dk.dense_block_mv(inv, xs)
@@ -848,6 +1179,14 @@ def main(argv=None):
     _check(abs(small["cuda"][0] - small["cpu"][0]) <= 2
            and dsmall < 1e-7, "small Jacobi solve cuda vs cpu")
     _phase("6 elasticity solve", t0)
+
+    del prob, A, A_sp, cache, db, prec, u, Fb, x6, ref6, small
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase7(torch, np, args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase8(torch, np, args, dev, hold_b123)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

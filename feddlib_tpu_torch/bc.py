@@ -28,7 +28,7 @@ import torch
 
 from feddlib_tpu_torch.fe.domain import Domain
 from feddlib_tpu_torch.la.block import BlockMatrix, BlockVector
-from feddlib_tpu_torch.la.csr import CsrMatrix
+from feddlib_tpu_torch.la.csr import CsrMatrix, SparsityPattern
 
 _COMPONENTS = {"X": 0, "Y": 1, "Z": 2}
 
@@ -200,13 +200,28 @@ class BCBuilder:
 
     def apply_to_system(self, system: BlockMatrix) -> BlockMatrix:
         """Dirichlet row masking of a whole block system
-        (Problem::setBoundariesSystem)."""
+        (Problem::setBoundariesSystem).  A block row with Dirichlet dofs but
+        no diagonal block (a pinned pressure dof of a Taylor–Hood system)
+        gets a sparse identity-at-Dirichlet diagonal block, so the system
+        stays nonsingular."""
         out = BlockMatrix(system.row_sizes, system.col_sizes)
         for (i, j), m in system.blocks.items():
             if i == j:
                 out.add_block(i, j, self.apply_to_matrix(m, i))
             else:
                 out.add_block(i, j, self.apply_to_offdiag_matrix(m, i))
+        for i in range(system.n_block_rows):
+            if (i, i) in out.blocks:
+                continue
+            mask = self.dirichlet_mask(i, system.row_sizes[i])
+            if not mask.any():
+                continue
+            d = np.nonzero(mask)[0]
+            dev = next(iter(system.blocks.values())).device
+            diag = CsrMatrix(SparsityPattern.from_coo(
+                d, d, system.row_sizes[i], system.col_sizes[i]), device=dev)
+            diag.assemble(torch.ones(len(d), dtype=torch.float64, device=dev))
+            out.add_block(i, i, diag)
         return out
 
     # -- rhs application ----------------------------------------------------
@@ -222,3 +237,35 @@ class BCBuilder:
             out[b] = torch.where(torch.as_tensor(mask, device=rhs[b].device),
                                  vals, rhs[b])
         return out
+
+    def _dirichlet_where(self, vec: BlockVector, value,
+                         t: float = 0.0) -> BlockVector:
+        """vec with block b's Dirichlet dofs replaced by value(b, g_b), g_b
+        the Dirichlet data of block b at time t."""
+        out = vec.copy()
+        for b in range(len(vec)):
+            n = vec[b].shape[0]
+            mask = self.dirichlet_mask(b, n)
+            if not mask.any():
+                continue
+            dev = vec[b].device
+            g = self.dirichlet_values(b, n, t, device=dev)
+            out[b] = torch.where(torch.as_tensor(mask, device=dev),
+                                 value(b, g), vec[b])
+        return out
+
+    def set_vector_minus_bc(self, residual: BlockVector, sol: BlockVector,
+                            t: float = 0.0) -> BlockVector:
+        """residual := u − g on Dirichlet dofs (setVectorMinusBC) — the
+        Newton residual correction."""
+        return self._dirichlet_where(residual, lambda b, g: sol[b] - g, t)
+
+    def set_bc_minus_vector(self, residual: BlockVector, sol: BlockVector,
+                            t: float = 0.0) -> BlockVector:
+        """residual := g − u on Dirichlet dofs."""
+        return self._dirichlet_where(residual, lambda b, g: g - sol[b], t)
+
+    def zero_dirichlet(self, vec: BlockVector) -> BlockVector:
+        """Zero the constrained entries (homogeneous form, for Newton
+        updates)."""
+        return self._dirichlet_where(vec, lambda b, g: torch.zeros_like(g))

@@ -1,8 +1,8 @@
 """Batched finite-element assembly on P1/P2 simplices: Laplace, mass, linear
-elasticity, volume and surface loads.
+elasticity, the Navier–Stokes convection and Newton terms, the mixed
+divergence, the Bochev–Dohrmann stabilization, volume and surface loads.
 
-Counterpart of the parts of feddlib_tpu/fe/assembly.py that the Laplace and
-linear-elasticity problems need: every step is batched over all elements at once — element geometry
+Counterpart of the simplex parts of feddlib_tpu/fe/assembly.py: every step is batched over all elements at once — element geometry
 (B, B⁻¹, det B) in closed form, element matrices by einsum over
 [elements, quadrature points, basis, dims], and the global scatter through
 the COO→CSR slot plan of `SparsityPattern`.  Everything is float64.
@@ -148,6 +148,64 @@ def elem_laplace_vec(vert_coords, dim, fe_type, viscosity=1.0):
     K = elem_laplace(vert_coords, dim, fe_type) * viscosity
     eye = torch.eye(dim, dtype=f64, device=vert_coords.device)
     return torch.einsum("eab,ij->eabij", K, eye)
+
+
+def elem_advection(vert_coords, u_elem, dim, fe_type):
+    """Convection N(u): ∫ (u·∇φb) φa with u the FE field on the same space.
+    u_elem [E, nb, dim] nodal velocity values per element; returns
+    [E, nb, nb]."""
+    _, qw, phi, dphi = _tables(dim, fe_type,
+                               ref.determine_degree(dim, fe_type, "conv"),
+                               vert_coords.device)
+    Binv, adet = element_transforms(vert_coords, dim)
+    g = _phys_grads(Binv, dphi)  # [E,nq,nb,dim]
+    u_q = torch.einsum("qb,ebd->eqd", phi, u_elem)  # u at quad points
+    N = torch.einsum("q,eqd,eqbd,qa->eab", qw, u_q, g, phi)
+    return N * adet[:, None, None]
+
+
+def elem_advection_in_u(vert_coords, u_elem, dim, fe_type):
+    """Newton linearisation W(u): ∫ φa φb ∂u_i/∂x_j — the (∇u)·δu term, a
+    dim×dim block per (a, b).  Returns [E, nb, nb, dim, dim]."""
+    _, qw, phi, dphi = _tables(dim, fe_type,
+                               ref.determine_degree(dim, fe_type, "conv"),
+                               vert_coords.device)
+    Binv, adet = element_transforms(vert_coords, dim)
+    g = _phys_grads(Binv, dphi)
+    grad_u = torch.einsum("ebi,eqbj->eqij", u_elem, g)  # [E,nq,dim,dim]
+    W = torch.einsum("q,qa,qb,eqij->eabij", qw, phi, phi, grad_u)
+    return W * adet[:, None, None, None, None]
+
+
+def elem_divergence(vert_coords, dim, fe_u, fe_p):
+    """Mixed divergence blocks B[a, (b, j)] = −∫ ψa ∂_j φb (pressure test
+    ψ, velocity trial φ).  Returns [E, nb_p, nb_u, dim]."""
+    deg = max(ref.determine_degree(dim, fe_u, "grad"),
+              ref.determine_degree(dim, fe_p, "phi"))
+    qp, qw = ref.quadrature(dim, deg)
+    psi, dphi, qw = (torch.as_tensor(np.asarray(a), dtype=f64,
+                                     device=vert_coords.device)
+                     for a in (ref.eval_phi(dim, fe_p, qp),
+                               ref.eval_grad_phi(dim, fe_u, qp), qw))
+    Binv, adet = element_transforms(vert_coords, dim)
+    g = _phys_grads(Binv, dphi)  # [E,nq,nb_u,dim]
+    B = -torch.einsum("q,qa,eqbj->eabj", qw, psi, g)
+    return B * adet[:, None, None, None]
+
+
+def elem_bd_stabilization(vert_coords, dim, fe_type):
+    """Bochev–Dohrmann P1–P1 pressure stabilization
+    C = −∫ (ψa − Π ψa)(ψb − Π ψb), Π the element-mean projector.  Returns
+    [E, nb, nb]."""
+    _, qw, phi, _ = _tables(dim, fe_type,
+                            ref.determine_degree(dim, fe_type, "phi"),
+                            vert_coords.device)
+    _, adet = element_transforms(vert_coords, dim)
+    vol_ref = qw.sum()
+    mean = torch.einsum("q,qa->a", qw, phi) / vol_ref
+    M = torch.einsum("q,qa,qb->ab", qw, phi, phi)
+    C = M - vol_ref * torch.outer(mean, mean)
+    return -C[None] * adet[:, None, None]
 
 
 def elem_lin_elasticity(vert_coords, dim, fe_type, mu=1.0, lam=1.0):

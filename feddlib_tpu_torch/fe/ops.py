@@ -1,11 +1,12 @@
 """Global assembly operations: Domain → CsrMatrix / vectors.
 
 Counterpart of feddlib_tpu/fe/ops.py for simplex Laplace (scalar and
-vector), mass, linear elasticity and the volume and surface loads, through
-the chunked element path (ops.py:48-91 of the JAX package) on every
-device.  The JAX package switches to its element-last
-fast assembly (fe/fast_assembly.py) on accelerators; that module is not
-ported yet (ROADMAP.md, slice 2).
+vector), mass, stress, linear elasticity, the Navier–Stokes convection and
+Newton blocks, the mixed divergence pair, the Bochev–Dohrmann
+stabilization and the volume and surface loads, through the chunked element
+path (ops.py:48-91 of the JAX package) on every device.  The JAX package
+switches to its element-last fast assembly (fe/fast_assembly.py) on
+accelerators; that module is not ported yet (ROADMAP.md A7, steps 3–4).
 """
 
 from __future__ import annotations
@@ -23,14 +24,15 @@ from feddlib_tpu_torch.la.csr import CsrMatrix
 _CHUNK = 32768
 
 
-def _assemble_chunked(domain: Domain, pattern, kernel,
+def _assemble_chunked(domain: Domain, pattern, kernel, *extra,
                       post=None) -> CsrMatrix:
-    """kernel(vert_coords chunk) → element matrices; `post` (e.g.
-    vectorize_elem_mat) runs on each chunk before it is flattened."""
+    """kernel(vert_coords chunk, *extra chunks) → element matrices, `extra`
+    per-element arrays chunked alike; `post` (e.g. vectorize_elem_mat) runs
+    on each chunk before it is flattened."""
     vc = domain.vert_coords()
     vals = []
     for s in range(0, vc.shape[0], _CHUNK):
-        out = kernel(vc[s:s + _CHUNK])
+        out = kernel(vc[s:s + _CHUNK], *(a[s:s + _CHUNK] for a in extra))
         vals.append((post(out) if post is not None else out).reshape(-1))
     m = CsrMatrix(pattern, device=domain.device)
     m.assemble(torch.cat(vals))
@@ -84,6 +86,91 @@ def assemble_mass(domain: Domain, dofs_per_node: int = 1) -> CsrMatrix:
     return _assemble_chunked(
         domain, _square_pattern(domain, dofs_per_node),
         lambda vc: asm.elem_mass(vc, domain.dim, domain.fe_type), post=post)
+
+
+def assemble_stress(domain: Domain, viscosity: float = 1.0) -> CsrMatrix:
+    """Symmetric-gradient stress form 2μ ∫ε(u):ε(v) (FE::assemblyStress)."""
+    _require_simplex(domain)
+    return _assemble_chunked(
+        domain, _square_pattern(domain, domain.dim),
+        lambda vc: asm.elem_stress_sym(vc, domain.dim, domain.fe_type,
+                                       viscosity),
+        post=asm.vectorize_elem_mat)
+
+
+def u_elem_values(domain: Domain, u: torch.Tensor) -> torch.Tensor:
+    """Nodal vector field u [n_nodes*dim] (NodeWise) → per-element values
+    [E, nb, dim] — the reference's repeated-form u_rep_."""
+    un = u.reshape(domain.n_nodes, domain.dim)
+    return un[torch.as_tensor(domain.elem_nodes(), device=u.device)]
+
+
+def _vector_identity(domain: Domain):
+    """[E, nb, nb] scalar element matrices → the vector form with the
+    identity over components (NodeWise)."""
+    eye = torch.eye(domain.dim, dtype=torch.float64, device=domain.device)
+    return lambda M: asm.vectorize_elem_mat(
+        torch.einsum("eab,ij->eabij", M, eye))
+
+
+def assemble_advection(domain: Domain, u: torch.Tensor) -> CsrMatrix:
+    """N(u): the (u·∇)u convection block, expanded to vector dofs
+    (FE::assemblyAdvectionVecField)."""
+    _require_simplex(domain)
+    return _assemble_chunked(
+        domain, _square_pattern(domain, domain.dim),
+        lambda vc, uc: asm.elem_advection(vc, uc, domain.dim,
+                                          domain.fe_type),
+        u_elem_values(domain, u), post=_vector_identity(domain))
+
+
+def assemble_advection_in_u(domain: Domain, u: torch.Tensor) -> CsrMatrix:
+    """W(u): the Newton linearisation (∇u)·δu
+    (FE::assemblyAdvectionInUVecField)."""
+    _require_simplex(domain)
+    return _assemble_chunked(
+        domain, _square_pattern(domain, domain.dim),
+        lambda vc, uc: asm.elem_advection_in_u(vc, uc, domain.dim,
+                                               domain.fe_type),
+        u_elem_values(domain, u), post=asm.vectorize_elem_mat)
+
+
+def assemble_divergence(dom_u: Domain, dom_p: Domain):
+    """Mixed divergence blocks B (p-rows × u-cols) and Bᵀ
+    (FE::assemblyDivAndDivT).  dom_u and dom_p must share the element
+    ordering (a P2 space built from the P1 one keeps it)."""
+    _require_simplex(dom_u)
+    dim = dom_u.dim
+    aligned = (dom_u.mesh is dom_p.mesh
+               or (dom_u.parent_p1 is not None
+                   and dom_u.parent_p1.mesh is dom_p.mesh)
+               or (dom_p.parent_p1 is not None
+                   and dom_p.parent_p1.mesh is dom_u.mesh)
+               or (dom_u.parent_p1 is not None and dom_p.parent_p1 is not None
+                   and dom_u.parent_p1.mesh is dom_p.parent_p1.mesh))
+    if not aligned:
+        raise ValueError(
+            "mixed-space assembly requires domains sharing one mesh "
+            "(build the P2 space with dom_p.p2_domain())")
+
+    def build():
+        return asm.scatter_pattern(dom_p.elem_dofs(1), dom_u.elem_dofs(dim),
+                                   dom_p.n_dofs(1), dom_u.n_dofs(dim))
+
+    B = _assemble_chunked(
+        dom_u, dom_p.pattern(("div", id(dom_u)), build),
+        lambda vc: asm.elem_divergence(vc, dim, dom_u.fe_type,
+                                       dom_p.fe_type))
+    return B, B.transpose()
+
+
+def assemble_bd_stabilization(dom_p: Domain) -> CsrMatrix:
+    """Bochev–Dohrmann P1–P1 pressure stabilization block C
+    (FE::assemblyBDStabilization)."""
+    _require_simplex(dom_p)
+    return _assemble_chunked(
+        dom_p, _square_pattern(dom_p, 1),
+        lambda vc: asm.elem_bd_stabilization(vc, dom_p.dim, dom_p.fe_type))
 
 
 def assemble_lin_elasticity(domain: Domain, mu: float, lam: float) -> CsrMatrix:

@@ -23,6 +23,10 @@ import torch
 
 from feddlib_tpu_torch.utils.device import resolve_device
 
+# symbolic-union cache of CsrMatrix.add across reassemblies:
+# (id(patA), id(patB)) → (patA, patB, union pattern)
+_union_pattern_cache: dict = {}
+
 
 @dataclass(frozen=True)
 class SparsityPattern:
@@ -173,6 +177,48 @@ class CsrMatrix:
         slot[r[mask]] = np.nonzero(mask)[0]
         padded = torch.cat([self.data, self.data.new_zeros(1)])
         return padded[torch.as_tensor(slot, device=self.device)]
+
+    def scale(self, alpha) -> "CsrMatrix":
+        return CsrMatrix(self.pattern, self.data * alpha, self.dtype,
+                         device=self.device)
+
+    def add(self, other: "CsrMatrix", alpha=1.0, beta=1.0) -> "CsrMatrix":
+        """alpha*self + beta*other.  Same pattern → one device add;
+        otherwise the symbolic union is built on the host once per pattern
+        pair and cached (Newton and time loops add the same two patterns
+        every reassembly), and the values are summed into it on the
+        device."""
+        if other.pattern is self.pattern or (
+            len(other.pattern.indices) == len(self.pattern.indices)
+            and np.array_equal(other.pattern.indptr, self.pattern.indptr)
+            and np.array_equal(other.pattern.indices, self.pattern.indices)
+        ):
+            return CsrMatrix(self.pattern,
+                             alpha * self.data + beta * other.data,
+                             self.dtype, device=self.device)
+        key = (id(self.pattern), id(other.pattern))
+        ent = _union_pattern_cache.get(key)
+        if (ent is None or ent[0] is not self.pattern
+                or ent[1] is not other.pattern):
+            rows = np.concatenate([self.pattern.rows_of_slots(),
+                                   other.pattern.rows_of_slots()])
+            cols = np.concatenate([self.pattern.indices,
+                                   other.pattern.indices])
+            pat = SparsityPattern.from_coo(rows, cols, *self.shape)
+            # hold the operand patterns so the id() key stays valid
+            ent = (self.pattern, other.pattern, pat)
+            _union_pattern_cache[key] = ent
+        m = CsrMatrix(ent[2], dtype=self.dtype, device=self.device)
+        m.assemble(torch.cat([alpha * self.data, beta * other.data]))
+        return m
+
+    def transpose(self) -> "CsrMatrix":
+        pat = self.pattern
+        tpat = SparsityPattern.from_coo(pat.indices, pat.rows_of_slots(),
+                                        pat.n_cols, pat.n_rows)
+        m = CsrMatrix(tpat, dtype=self.dtype, device=self.device)
+        m.assemble(self.data)
+        return m
 
     def __repr__(self):
         return f"CsrMatrix({self.shape[0]}x{self.shape[1]}, nnz={self.nnz})"

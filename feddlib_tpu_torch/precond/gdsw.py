@@ -14,13 +14,16 @@ numpy/scipy work:
    (Φ_I = −A_II⁻¹ A_IΓ Φ_Γ, sparse LU per subdomain).
 4. *Galerkin coarse operator* A₀ = Φᵀ A Φ (host SpGEMM, or `rap_device`).
 
-`TwoLevelSchwarz` and `distributed_two_level` are not ported yet
-(ROADMAP.md A5 and A10); the padded two-level preconditioner of the
-mixed-precision solve is precond/cluster_coarse.py.
+`TwoLevelSchwarz` puts the coarse level on top of the one-level
+`SchwarzPreconditioner` (precond/schwarz.py), additively or
+multiplicatively.  `distributed_two_level` is not ported yet (ROADMAP.md
+A10); the padded two-level preconditioner of the mixed-precision solve is
+precond/cluster_coarse.py.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -28,7 +31,7 @@ import scipy.sparse as sps
 import scipy.sparse.linalg as spla
 import torch
 
-from feddlib_tpu_torch.la.csr import CsrMatrix
+from feddlib_tpu_torch.la.csr import CsrMatrix, ell_apply
 from feddlib_tpu_torch.la.dense_blocks import _parallel_map
 from feddlib_tpu_torch.la.map import IndexMap
 
@@ -436,6 +439,7 @@ class GDSWCoarseOperator:
             A0s = (A0s + sps.diags(bad.astype(np.float64))).tocsr()
         self.n_coarse = nc
         self.phi = CsrMatrix.from_scipy(phi, dtype=dtype, device=self.device)
+        self._phiT = None
         # A0 kept SPARSE; the dense form and its inverse are LAZY — the
         # scalable coarse-solver paths (sparse LU wavefront / iterative
         # GMRES, the reference's CoarseSolver sublist) never form them
@@ -462,3 +466,106 @@ class GDSWCoarseOperator:
     def A0_sparse(self) -> sps.csr_matrix:
         """A₀ as scipy CSR (the native storage)."""
         return self._A0_sp
+
+    @property
+    def phiT(self) -> CsrMatrix:
+        """Φᵀ as its own CSR (the restriction of the serial coarse apply;
+        built on first use — the padded coarse level never needs it)."""
+        if self._phiT is None:
+            self._phiT = CsrMatrix.from_scipy(
+                self.phi.to_scipy().T.tocsr(), dtype=self._dtype,
+                device=self.device)
+        return self._phiT
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        rc = self.phiT.matvec(r)
+        return self.phi.matvec(self.A0_inv @ rc)
+
+
+def _two_level_apply(ops, r):
+    """Additive two-level apply: ops = (l1_fn, l1_ops, coarse_ops) with
+    coarse_ops = (phi_ops, phiT_ops, A0_inv) or None."""
+    l1_fn, l1_ops, coarse_ops = ops
+    z = l1_fn(l1_ops, r)
+    if coarse_ops is not None:
+        phi_ops, phiT_ops, A0_inv = coarse_ops
+        z = z + ell_apply(phi_ops, A0_inv @ ell_apply(phiT_ops, r))
+    return z
+
+
+def _two_level_mult_apply(ops, r):
+    """Multiplicative: the coarse level acts on the residual updated by the
+    first level; ops = (l1_fn, l1_ops, coarse_ops, A_ops)."""
+    l1_fn, l1_ops, coarse_ops, A_ops = ops
+    z = l1_fn(l1_ops, r)
+    if coarse_ops is not None:
+        phi_ops, phiT_ops, A0_inv = coarse_ops
+        r2 = r - ell_apply(A_ops, z)
+        z = z + ell_apply(phi_ops, A0_inv @ ell_apply(phiT_ops, r2))
+    return z
+
+
+class TwoLevelSchwarz:
+    """Two-level Schwarz: one-level overlapping Schwarz + the GDSW/RGDSW/
+    IPOU coarse level.  'Level Combination' Additive (default) applies both
+    levels to the same residual; Multiplicative applies the coarse
+    correction to the residual updated by the first level (one more SpMV
+    per apply, typically fewer Krylov iterations)."""
+
+    def __init__(self, A: CsrMatrix, unique_map: IndexMap,
+                 node_part_sets: Optional[List[np.ndarray]] = None,
+                 points: Optional[np.ndarray] = None,
+                 dofs_per_node: int = 1, overlap: int = 1,
+                 combine: str = "Restricted", null_space: str = "laplace",
+                 dirichlet_mask: Optional[np.ndarray] = None,
+                 rap: str = "host", blocks: Optional[List[dict]] = None,
+                 variant: str = "GDSW",
+                 level_combination: str = "Additive",
+                 subdomain_solver: str = "auto",
+                 ipou: Optional[dict] = None):
+        from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+
+        if level_combination not in ("Additive", "Multiplicative"):
+            raise ValueError(f"unknown level combination "
+                             f"{level_combination!r}")
+        self.level_combination = level_combination
+        self.A = A
+        t0 = time.perf_counter()
+        self.level1 = SchwarzPreconditioner(A, unique_map, overlap=overlap,
+                                            combine=combine,
+                                            solver=subdomain_solver)
+        t1 = time.perf_counter()
+        try:
+            self.coarse = GDSWCoarseOperator(
+                A, unique_map, node_part_sets, points, dofs_per_node,
+                null_space, dirichlet_mask, rap=rap, blocks=blocks,
+                variant=variant, ipou=ipou)
+        except ValueError as e:
+            # tiny problems can have a fully-Dirichlet interface → no coarse
+            # functions; degrade gracefully to one level
+            import warnings
+
+            warnings.warn(f"GDSW coarse space unavailable ({e}); "
+                          "falling back to one-level Schwarz")
+            self.coarse = None
+        self.timings = {"level1_s": t1 - t0,
+                        "gdsw_s": time.perf_counter() - t1}
+        self._op = None
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        fn, ops = self.operator()
+        return fn(ops, r)
+
+    def operator(self):
+        """(fn, operands) for the solver's operator protocol."""
+        if self._op is None:
+            l1 = self.level1.operator()
+            co = self.coarse
+            coarse_ops = None if co is None else (
+                co.phi.operator()[1], co.phiT.operator()[1], co.A0_inv)
+            if self.level_combination == "Multiplicative":
+                self._op = (_two_level_mult_apply,
+                            (*l1, coarse_ops, self.A.operator()[1]))
+            else:
+                self._op = (_two_level_apply, (*l1, coarse_ops))
+        return self._op

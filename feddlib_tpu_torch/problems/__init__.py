@@ -1,5 +1,8 @@
-from feddlib_tpu_torch.problems.base import Problem
+from feddlib_tpu_torch.problems.base import NonLinearProblem, Problem
 from feddlib_tpu_torch.problems.laplace import Laplace
 from feddlib_tpu_torch.problems.linelas import LinElas
+from feddlib_tpu_torch.problems.navier_stokes import NavierStokes
+from feddlib_tpu_torch.problems.stokes import Stokes
 
-__all__ = ["Problem", "Laplace", "LinElas"]
+__all__ = ["Problem", "NonLinearProblem", "Laplace", "LinElas", "Stokes",
+           "NavierStokes"]

@@ -7,6 +7,9 @@ A Problem owns:
   zeroing on off-diagonals;
 - `preconditioner` + `parameter_list` driving the linear solver;
 - `device`: where its tensors live (default "cuda").
+
+NonLinearProblem adds the residual / reassembly hooks that
+solvers/nonlinear.py's NonLinearSolver drives.
 """
 
 from __future__ import annotations
@@ -90,3 +93,24 @@ class Problem:
         """Monolithic linear solve; returns the Krylov iteration count."""
         self.init_vectors()
         return self.linear_solver.solve(self)
+
+
+class NonLinearProblem(Problem):
+    """Adds the residual / Jacobian machinery NonLinearSolver drives."""
+
+    def __init__(self, parameter_list=None, device="cuda"):
+        super().__init__(parameter_list, device=device)
+        self.residual: Optional[BlockVector] = None
+
+    def calculate_residual(self, t: float = 0.0) -> BlockVector:
+        """Nonlinear residual F(u) with the Dirichlet correction
+        residual = u − g on constrained dofs (the reference's "reverse"
+        convention)."""
+        raise NotImplementedError
+
+    def reassemble(self, mode: str = "Newton") -> None:
+        """Update the solution-dependent blocks (N(u), W(u), tangents)."""
+        raise NotImplementedError
+
+    def residual_norm(self, r: BlockVector) -> float:
+        return float(r.norm2())

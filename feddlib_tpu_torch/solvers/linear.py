@@ -1,15 +1,20 @@
 """LinearSolver + Preconditioner factory — counterpart of
 feddlib_tpu/solvers/linear.py.
 
-Two solve paths are ported.  The mixed-precision path ('Use Mixed
+Two solve paths are ported.  The f64 Krylov path: restarted GMRES (or CG)
+with the preconditioner that `'Preconditioner Type'` names — None, Id,
+Jacobi, the one-level overlapping Schwarz ('SchwarzOneLevel' / 'Schwarz',
+precond/schwarz.py) or the two-level Schwarz with a GDSW / RGDSW /
+IPOUHarmonic coarse level ('SchwarzTwoLevel', the default, precond/gdsw.py;
+multi-field systems get the monolithic block coarse space of
+`_block_specs`) — and an A-apply that goes through a gather-free DIA /
+block-DIA operator on the card when the matrix is banded
+(`'SpMV Format': 'auto'`).  And the mixed-precision path ('Use Mixed
 Precision'): an f64 iterative refinement around an f32 restarted GMRES that
 runs in the padded cluster space, with the padded SELL operator
-(`PaddedSplitSpMV`) as A and the restricted dense-block Schwarz — optionally
-with the padded GDSW coarse level (`'TwoLevel': True`) — as M.  And the f64
-Krylov path for `'Preconditioner Type'` None, Id and Jacobi, whose A-apply
-goes through a gather-free DIA / block-DIA operator on the card when the
-matrix is banded (`'SpMV Format': 'auto'`).  The Schwarz preconditioner
-types and the distributed solve raise NotImplementedError and name their
+(`PaddedSplitSpMV`) as A and the restricted dense-block Schwarz —
+optionally with the padded GDSW coarse level (`'TwoLevel': True`) — as M.
+'FaCSI' and the distributed solve raise NotImplementedError and name their
 ROADMAP.md item.
 """
 
@@ -44,19 +49,18 @@ def point_cluster_operators(A, points, n_clusters: int, dofs_per_node: int):
 
 class Preconditioner:
     """Preconditioner factory bound to a problem: builds once, reusable
-    across solves, rebuilt on request (reassembly).  Ported: None / Id /
-    Jacobi and the merged dof map; the f64 Schwarz/GDSW types wait for
-    ROADMAP.md A5."""
+    across solves, rebuilt on request (reassembly)."""
 
     def __init__(self, problem):
         self.problem = problem
         self._built = False
         self._op = None  # (fn, operands), or None for the identity
+        self.prec = None  # the built Schwarz object, for inspection
 
     def build(self, matrix) -> None:
         params = self.problem.parameter_list
         prec_type = params.get("Preconditioner Type", "SchwarzTwoLevel")
-        self._op = None
+        self._op = self.prec = None
         if prec_type in ("None", "Id"):
             self._built = True
             return
@@ -67,11 +71,62 @@ class Preconditioner:
             self._op = (_jacobi_op, (dinv,))
             self._built = True
             return
-        raise NotImplementedError(
-            f"'Preconditioner Type': {prec_type!r} is not ported yet: the "
-            f"f64 Schwarz / GDSW / FaCSI preconditioners wait for "
-            f"ROADMAP.md A5 (ported: None, Id, Jacobi, and the "
-            f"mixed-precision path 'Use Mixed Precision': True)")
+        if prec_type == "FaCSI":
+            raise NotImplementedError(
+                "'Preconditioner Type': 'FaCSI' is not ported yet "
+                "(ROADMAP.md A9, precond/facsi.py)")
+        # the Schwarz variants need the mesh partition of the first domain
+        # — of its P1 parent when the leading space is P2, so all blocks
+        # (e.g. u-P2 / p-P1) share one element partition
+        n_sub = int(params.get("Subdomains", 4))
+        overlap = int(params.get("Overlap", 1))
+        combine = params.get("Combine Values in Overlap", "Restricted")
+        # 'Subdomain Solver': auto | dense | sparse (dense [P,S,S] inverses
+        # or the batched sparse LU of la/sparse_lu.py)
+        sub_solver = params.get("Subdomain Solver", "auto")
+        dom0 = self.problem.domains[0]
+        base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
+                     else dom0.mesh)
+        part = MeshPartition(base_mesh, n_sub)
+        dof_map = self._merged_dof_map(part)
+        if prec_type in ("SchwarzTwoLevel", "GDSW", "TwoLevel"):
+            from feddlib_tpu_torch.precond.gdsw import TwoLevelSchwarz
+
+            nsp = params.get("Null Space Type", "laplace").lower()
+            nsp = "elasticity" if "elas" in nsp else "laplace"
+            variant = params.get("Coarse Space Variant", "GDSW")
+            ipou = None
+            if variant == "IPOUHarmonic":
+                ipou = dict(pou_type=params.get("IPOU Type", "GDSWStar"),
+                            vertices=bool(params.get("IPOU Vertices", True)),
+                            edges=bool(params.get("IPOU Edges", True)),
+                            faces=bool(params.get("IPOU Faces", True)))
+            common = dict(overlap=overlap, combine=combine,
+                          dirichlet_mask=self.problem.merged_dirichlet_mask(),
+                          variant=variant,
+                          level_combination=params.get("Level Combination",
+                                                       "Additive"),
+                          subdomain_solver=sub_solver, ipou=ipou)
+            if len(self.problem.variables) == 1:
+                prec = TwoLevelSchwarz(
+                    matrix, dof_map, part.repeated_map.partition_indices,
+                    dom0.mesh.points, self.problem.total_dofs_per_node(),
+                    null_space=nsp, **common)
+            else:
+                # monolithic block GDSW: per-block repeated maps, points,
+                # dofs per node and null spaces
+                prec = TwoLevelSchwarz(matrix, dof_map,
+                                       blocks=self._block_specs(part, nsp),
+                                       **common)
+        else:  # "SchwarzOneLevel" / "Schwarz", as in the JAX package
+            from feddlib_tpu_torch.precond.schwarz import \
+                SchwarzPreconditioner
+
+            prec = SchwarzPreconditioner(matrix, dof_map, overlap=overlap,
+                                         combine=combine, solver=sub_solver)
+        self.prec = prec
+        self._op = prec.operator()
+        self._built = True
 
     def built(self) -> bool:
         return self._built
@@ -133,6 +188,35 @@ class Preconditioner:
                     parts[p].append(np.nonzero(owner == p)[0] + offsets[b])
         merged = [np.sort(np.concatenate(lst)) for lst in parts]
         return IndexMap(int(offsets[-1]), merged)
+
+    def _block_specs(self, part: MeshPartition, null_space: str):
+        """Per-block GDSW specs: each variable block brings its own mesh's
+        per-part repeated node sets, node coordinates, dofs per node and
+        null space; extra (domain-less) blocks get no coarse functions.
+        Vector blocks use the elasticity null space only when asked;
+        scalar blocks always use constants."""
+        prob = self.problem
+        offsets = np.concatenate([[0], np.cumsum(prob.block_sizes())])
+        specs = []
+        mesh_parts = {id(part.mesh): part}
+        for b, (dom, dofs, _) in enumerate(prob.variables):
+            base = dom.parent_p1 or dom
+            bp = mesh_parts.get(id(base.mesh))
+            if bp is None:
+                bp = MeshPartition(base.mesh, part.n_parts)
+                mesh_parts[id(base.mesh)] = bp
+            if dom.mesh is bp.mesh:
+                rep_sets = bp.repeated_map.partition_indices
+            else:  # P2 child: repeated nodes = nodes touched by my elements
+                rep_sets = [np.unique(dom.mesh.elements[bp.elem_ids[p]])
+                            for p in range(part.n_parts)]
+            nsp = null_space if (dofs > 1 and null_space == "elasticity") \
+                else "laplace"
+            specs.append(dict(offset=int(offsets[b]),
+                              node_part_sets=rep_sets,
+                              points=dom.mesh.points,
+                              dofs_per_node=dofs, null_space=nsp))
+        return specs
 
 
 def _p2_unique_map(part: MeshPartition, dom):

@@ -1,9 +1,11 @@
 """Carry the JAX package's assembled state into the port.
 
 The system has no weights; what crosses between the two packages is the
-assembled state — a CSR matrix, a mesh, a partition, a built SpMV format —
-given as numpy arrays, so both packages can build every operator from the
-same matrix and the same clusters, or apply the very same format planes.  Copy a jax array with `np.array(a, copy=True)` first:
+assembled state — a CSR matrix, a mesh, a partition, a built SpMV format,
+a block vector, a built one-level Schwarz preconditioner, a Newton iterate
+— given as numpy arrays, so both packages can build every operator from the
+same matrix and the same clusters, apply the very same format planes or
+subdomain inverses, or take a Newton step from the same iterate.  Copy a jax array with `np.array(a, copy=True)` first:
 `np.asarray` of a jax array is read-only.
 """
 
@@ -14,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from feddlib_tpu_torch.la.block import BlockVector
 from feddlib_tpu_torch.la.csr import CsrMatrix, SparsityPattern
 from feddlib_tpu_torch.la.dia import (BlockDiaMatrix, DiaMatrix,
                                       SplitDiaMatrix, split_gathers)
@@ -143,3 +146,43 @@ def split_dia_from_numpy(dia_part, sell_part, d, node_perm, sel_dia, sel_res,
         np.array(sel_dia, dtype=np.int64, copy=True),
         np.array(sel_res, dtype=np.int64, copy=True), int(nnz), dtype, gin,
         gout)
+
+
+# -- vectors, preconditioners and nonlinear state ------------------------------
+
+def block_vector_from_numpy(blocks, device="cuda",
+                            dtype=torch.float64) -> BlockVector:
+    """BlockVector from a sequence of numpy blocks (a JAX BlockVector's
+    `blocks`, each copied with np.array)."""
+    return BlockVector([_dev(b, device, dtype) for b in blocks])
+
+
+def schwarz_from_numpy(n, ov_idx, keep, inv, avg_scale=None,
+                       combine: str = "Restricted", dtype=torch.float64,
+                       device="cuda"):
+    """SchwarzPreconditioner from the arrays of a JAX
+    `SchwarzPreconditioner` with dense subdomain inverses: ov_idx [P, S]
+    (pad → n), keep [P, S], inv [P, S, S], and avg_scale [n] for the
+    Averaging combine."""
+    from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+    from feddlib_tpu_torch.utils.device import resolve_device
+
+    pre = SchwarzPreconditioner.__new__(SchwarzPreconditioner)
+    pre.device = resolve_device(device)
+    pre.combine = combine
+    pre.n = int(n)
+    pre.ov_idx = _dev(ov_idx, pre.device)
+    pre.n_parts, pre.S = pre.ov_idx.shape
+    pre.ov_sets = [row[row < pre.n] for row in np.asarray(ov_idx)]
+    pre.solver, pre.slu = "dense", None
+    pre.keep = _dev(keep, pre.device, dtype)
+    pre.inv = _dev(inv, pre.device, dtype)
+    pre.avg_scale = _dev(avg_scale, pre.device, dtype)
+    pre._op = None
+    return pre
+
+
+def newton_state_from_numpy(problem, u, p) -> None:
+    """Set a velocity–pressure problem's iterate (u, p) — a JAX problem's
+    solution blocks — so a Newton step starts from it."""
+    problem.solution = block_vector_from_numpy([u, p], problem.device)

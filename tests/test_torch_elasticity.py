@@ -270,10 +270,22 @@ def test_linelas_f64_branch_variants(prec_type, method):
 
 
 def test_schwarz_types_still_raise():
-    pt = _linelas(TDomain, TLinElas, TPL, (2, 3),
-                  {"Preconditioner Type": "SchwarzTwoLevel"},
+    """The Schwarz types are ported: 'SchwarzTwoLevel' with the elasticity
+    null space solves LinElas to 1e-8 in the JAX package's iteration
+    count.  'FaCSI' still raises and names ROADMAP.md A9."""
+    params = {"Preconditioner Type": "SchwarzTwoLevel", "Subdomains": 4,
+              "Null Space Type": "Elasticity"}
+    pj = _linelas(JDomain, JLinElas, JPL, (2, 6), params,
+                  lambda x: jnp.array([0.0, -0.1]))
+    pt = _linelas(TDomain, TLinElas, TPL, (2, 6), params,
                   lambda x: [0.0, -0.1], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+    it_j, it_t = pj.solve(), pt.solve()
+    assert pt.last_relres <= 1e-8 and it_t == it_j
+    assert np.abs(pt.solution[0].numpy()
+                  - np.asarray(pj.solution[0])).max() < 1e-7
+    pt.parameter_list["Preconditioner Type"] = "FaCSI"
+    pt._prec_stale = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
         pt.solve()
 
 

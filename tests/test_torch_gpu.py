@@ -496,3 +496,148 @@ def test_dense_block_schwarz_device_factor_on_card(hopper, symmetric):
         db = DenseBlockSpMV.from_csr(A, cl, dtype=torch.float32)
         out[str(dev)] = DenseBlockSchwarz(A, db).inv.cpu()
     assert _rel(out[str(hopper)], out["cpu"]) < 1e-3
+
+
+# -- the f64 Schwarz types and the two-field mixed path ----------------------
+
+def _poisson_csr(device, n=8):
+    dom = Domain.structured(3, n, device="cpu")
+    K, b = host_poisson_dirichlet(dom)
+    from feddlib_tpu_torch.la.csr import CsrMatrix
+
+    return dom, K, CsrMatrix.from_scipy(K, device=device), b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["one-level", "one-level-sparse",
+                                  "Additive", "Multiplicative"])
+def test_f64_schwarz_on_card_matches_cpu(hopper, kind):
+    """SchwarzPreconditioner and TwoLevelSchwarz (f64, host inverses, the
+    card's batched einsum and index_add) against the same on the CPU,
+    within 1e-10 relative."""
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond.gdsw import TwoLevelSchwarz
+    from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+
+    dom, K, _, _ = _poisson_csr("cpu")
+    part = MeshPartition(dom.mesh, 8)
+    mask = np.asarray(dom.mesh.point_flags) == 1
+    r = np.random.default_rng(4).standard_normal(K.shape[0])
+    z = {}
+    for dev in ("cpu", hopper):
+        _, _, A, _ = _poisson_csr(dev)
+        if kind.startswith("one-level"):
+            M = SchwarzPreconditioner(
+                A, part.unique_map, combine="Averaging",
+                solver="sparse" if kind.endswith("sparse") else "dense")
+            assert (M.inv if M.slu is None else M.slu.L[0][2]).dtype \
+                == torch.float64
+        else:
+            M = TwoLevelSchwarz(A, part.unique_map,
+                                part.repeated_map.partition_indices,
+                                dom.mesh.points, 1, dirichlet_mask=mask,
+                                level_combination=kind)
+        fn, ops = M.operator()
+        z[str(dev)] = fn(ops, torch.as_tensor(r, device=dev)).cpu()
+    assert _rel(z[str(hopper)], z["cpu"]) < 1e-10
+
+
+@pytest.mark.gpu
+def test_f32_schwarz_device_factor_on_card(hopper):
+    """The f32 SchwarzPreconditioner factors its blocks on the card (the
+    slot-carrying scatter and a batched inverse) and applies within 1e-4
+    of the host f64 inverses (f32 roundoff and its 1e-6 diagonal guard)."""
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+
+    dom, K, A, _ = _poisson_csr(hopper)
+    part = MeshPartition(dom.mesh, 8)
+    M32 = SchwarzPreconditioner(A, part.unique_map, dtype=torch.float32)
+    assert M32.inv.dtype == torch.float32 and M32.inv.is_cuda
+    M64 = SchwarzPreconditioner(_poisson_csr("cpu")[2], part.unique_map)
+    r = np.random.default_rng(5).standard_normal(K.shape[0])
+    z32 = M32.apply(torch.as_tensor(r, dtype=torch.float32, device=hopper))
+    z64 = M64.apply(torch.as_tensor(r))
+    assert _rel(z32.cpu().double(), z64) < 1e-4
+
+
+@pytest.mark.gpu
+def test_batched_sparse_lu_on_card(hopper):
+    """The wavefront sweeps of BatchedSparseLU on the card against the CPU
+    (and spsolve), padding lanes zero."""
+    import scipy.sparse as sps
+
+    from feddlib_tpu_torch.la.sparse_lu import BatchedSparseLU
+
+    rng = np.random.default_rng(0)
+    blocks = []
+    for n in (40, 57, 64, 200):
+        A = sps.random(n, n, density=0.05, random_state=int(rng.integers(1 << 30)),
+                       format="csr")
+        blocks.append((A + A.T + 10 * sps.identity(n)).tocsr())
+    S = 200
+    r = np.zeros((len(blocks), S))
+    for i, b in enumerate(blocks):
+        r[i, : b.shape[0]] = rng.standard_normal(b.shape[0])
+    x = {}
+    for dev in ("cpu", hopper):
+        slu = BatchedSparseLU(blocks, S, device=dev)
+        x[str(dev)] = slu.solve(torch.as_tensor(r, device=dev)).cpu()
+    assert _rel(x[str(hopper)], x["cpu"]) < 1e-12
+    for i, A in enumerate(blocks):
+        n = A.shape[0]
+        xe = sps.linalg.spsolve(A.tocsc(), r[i, :n])
+        assert np.abs(x[str(hopper)][i, :n].numpy() - xe).max() < 1e-10
+        if n < S:  # padding lanes stay zero
+            assert float(x[str(hopper)][i, n:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_two_field_mixed_path_runs_b123_on_card(hopper):
+    """A small P2/P1 cavity through Newton with 'Use Mixed Precision' and
+    'SchwarzOneLevel': the balance=True dof-map clusters, B1, B2 and B3
+    launched and each equal to its plain version at the solve's shapes,
+    and the Newton iterate within 1e-6 of the CPU's (the pressure up to
+    its constant: no pressure dof is pinned)."""
+    from feddlib_tpu_torch.problems import NavierStokes
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    def lid(x, t):
+        on = x[2] > 1 - 1e-9
+        return torch.stack([on.double(), 0.0 * x[0], 0.0 * x[0]])
+
+    out = {}
+    for dev in ("cpu", hopper):
+        dom_p = Domain.structured(3, 3, device=dev)
+        prob = NavierStokes(dom_p.p2_domain(), dom_p, parameter_list=(
+            ParameterList("P", {"Viscosity": 0.1, "Use Mixed Precision": True,
+                                "Preconditioner Type": "SchwarzOneLevel",
+                                "Clusters": 8, "relNonLinTol": 1e-8})),
+            device=dev)
+        prob.assemble()
+        prob.add_bc(lid, 1, 0)
+        _cuda.reset_launch_counts()
+        its = NonLinearSolver("Newton").solve(prob)
+        u, p = (v.cpu() for v in prob.solution.blocks)
+        out[str(dev)] = (its, torch.cat([u, p - p.mean()]))
+    counts = dict(_cuda.launch_counts)
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        assert counts[k] > 0, counts
+    assert out["cpu"][0] == out[str(hopper)][0]
+    assert float((out["cpu"][1] - out[str(hopper)][1]).abs().max()) < 1e-6
+    cache = prob._mixed_cache
+    db, Ac, inv = cache["db32"], cache["sell"].Ac, cache["prec"].inv
+    xp = torch.randn(db.P * db.R, device=hopper)
+    _hold_b1(xp, db.ghost_plan[0])
+    xg = torch.cat([xp, permute_gather(xp, db.ghost_plan[0])])
+    nx2 = (Ac.shape[1] + 127) // 128
+    x2d = torch.zeros(nx2 * 128, device=hopper)
+    x2d[: Ac.shape[1]] = xg
+    x2d = x2d.reshape(nx2, 128)
+    y = sell.sell_spmv(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
+    yp = sell.sell_spmv_plain(Ac.vals, Ac.pidx, Ac.bids, x2d, Ac.E)
+    assert _rel(y, yp) < 1e-6
+    xs = torch.randn(inv.shape[0], inv.shape[2], device=hopper)
+    assert _rel(dk.dense_block_mv(inv, xs), dk.dense_block_mv_plain(inv, xs)) \
+        < 1e-5

@@ -160,10 +160,35 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_paths_raise():
+    """What is still unported raises and names its ROADMAP.md item: the
+    'FaCSI' preconditioner (A9) and the distributed solve (A10).  (Before
+    the Schwarz types were ported, the default preconditioner raised
+    here; test_default_solve_converges holds it now.)"""
     pt = _laplace(TDomain, TLaplace, TPL, 3, 2, False, device="cpu")
     pt.parameter_list["Use Mixed Precision"] = False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pt.parameter_list["Preconditioner Type"] = "FaCSI"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
         pt.solve()
     pt.parameter_list["Use Distributed Solve"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
         pt.solve()
+
+
+def test_default_solve_converges():
+    """Problem.solve() with default parameters ('SchwarzTwoLevel', 4
+    subdomains, f64 GMRES to 1e-8) converges on the CPU in the JAX
+    package's iteration count."""
+    probs = []
+    for D, L, PL, kw in ((JDomain, JLaplace, JPL, {}),
+                         (TDomain, TLaplace, TPL, {"device": "cpu"})):
+        prob = L(D.structured(3, 4, **kw), parameter_list=PL("P"), **kw)
+        prob.assemble()
+        prob.assemble_source(lambda x: 1.0 + 0 * x[0])
+        prob.add_bc(lambda x, t: 0.0, 1, 0)
+        prob.set_boundaries_rhs()
+        probs.append((prob.solve(), prob))
+    (it_j, pj), (it_t, pt) = probs
+    assert pt.last_relres <= 1e-8 and it_t == it_j
+    assert type(pt.preconditioner.prec).__name__ == "TwoLevelSchwarz"
+    assert np.abs(pt.solution[0].numpy()
+                  - np.asarray(pj.solution[0])).max() < 1e-7
