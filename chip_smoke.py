@@ -56,7 +56,29 @@ exits non-zero):
      residual of the last linear solve on the host; B1, B2 and B3 must
      launch, and each is held against its plain version at this solve's
      shapes; the golden small cavity (tests/test_goldens.py:71) through
-     the f64 two-level path on the card.
+     the f64 two-level path on the card;
+  9. an unsteady hyperelastic block: NonLinElasticity (Neo-Hooke) on
+     Domain.structured(3, 32) (P1, 107,811 dofs), the x = 0 face clamped, a
+     body load ramped in time, Newton inside DAESolverInTime's BDF2 over 3
+     steps with 'Use Mixed Precision' + 'TwoLevel', the rigid-body null
+     space and 64 clusters; Newton must converge in every step, each
+     step's last linear solve reach 1e-8 in f64 on the host, B1, B2 and B3
+     launch (each held against its plain version at this solve's shapes);
+     per step the Newton count, the GMRES iterations and the seconds of
+     tangent / combined system and BCs / with_data / solve; one tangent
+     chunk on the card against the CPU; then LinElas on
+     Domain.structured(3, 8) through 10 Newmark steps in f64, checkpointed
+     at step 5 and resumed in a fresh DAESolverInTime and problem: the
+     resumed run must equal the uninterrupted one bit for bit;
+ 10. element assembly on the card: scalar P1 Laplace and mass on
+     Domain.structured(3, 64) and P2 Laplace on Domain.structured(3,
+     32).p2_domain(), each through the element-last fast path and the
+     chunked path (agreeing within 1e-13 of max |data|; the element kernel
+     and the scatter timed apart); the P1 Laplace scatter as B2 over the
+     0/1 assembly plan (16 splits, f32), held against its plain version,
+     the f64 assembly and a torch CSR yardstick; Q2 hex vector Laplace and
+     P1-disc divergence on Domain.structured_hex(3, 24, "Q2"), card
+     against CPU.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -572,6 +594,494 @@ def _phase8(torch, np, args, dev, hold_b123):
     _phase("8 cavity", t0)
 
 
+def _hyper(torch, n, params, device, load=-0.3):
+    """Phase 9's block: NonLinElasticity (Neo-Hooke, E = 1, ν = 0.3) on
+    Domain.structured(3, n) with the x = 0 face clamped (flag 2) and its
+    body load in the last direction (`load` per unit volume, ramped in time
+    by the caller)."""
+    from feddlib_tpu_torch.fe import ops
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.mesh.structured import flag_boxed_boundary
+    from feddlib_tpu_torch.problems import NonLinElasticity
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    dom = Domain.structured(3, n, device=device)
+    flag_boxed_boundary(dom.mesh, [0.0] * 3, [1.0] * 3, {"x0": 2})
+    prob = NonLinElasticity(dom, parameter_list=ParameterList("P", dict(
+        {"Material Model": "Neo-Hooke", "E": 1.0, "Poisson Ratio": 0.3},
+        **params)), device=device)
+    prob.assemble()
+    prob.add_bc(lambda x, t: 0.0, 2, 0)
+    f = ops.assemble_rhs(dom, lambda x: [0.0, 0.0, load], 3)
+    return prob, f
+
+
+def _min_jacobian(torch, dom, d):
+    """Least det(I + ∇d) over the elements (P1: one value an element)."""
+    from feddlib_tpu_torch.fe.assembly import small_det
+
+    vc = dom.vert_coords()
+    de = d.reshape(-1, 3)[torch.as_tensor(dom.elem_nodes()[:, :4],
+                                          device=d.device)]
+    x = vc + de
+    B = (vc[:, 1:] - vc[:, :1]).transpose(1, 2)
+    Bx = (x[:, 1:] - x[:, :1]).transpose(1, 2)
+    return float((small_det(Bx) / small_det(B)).min())
+
+
+def _phase9(torch, np, args, dev, hold_b123):
+    """The unsteady hyperelastic block and the checkpointed Newmark run
+    (see the module docstring)."""
+    import warnings
+
+    from feddlib_tpu_torch.fe.hyperelastic import elem_hyper_residual_tangent
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.la.block import BlockVector
+    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
+    from feddlib_tpu_torch.problems import nonlin_elasticity as nle
+    from feddlib_tpu_torch.solvers import linear, refinement
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+    from feddlib_tpu_torch.solvers.timestepping import (DAESolverInTime,
+                                                        TimeProblem)
+
+    t0 = time.perf_counter()
+    prob, f = _hyper(torch, args.n_hyper, {
+        "Use Mixed Precision": True, "TwoLevel": True,
+        "Null Space Type": "elasticity", "Clusters": args.hyper_clusters,
+        "Convergence Tolerance": 1e-8}, dev)
+    dom = prob.domains[0]
+    tp = TimeProblem(prob)
+    t_end = 3.0
+    drv = DAESolverInTime(tp, 1.0, t_end,
+                          rhs_func=lambda t: BlockVector([f * (t / t_end)]))
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    # per-step seconds: wrap the tangent reassembly, the combined system
+    # and its BCs, with_data (the mixed cache's refresh), the padded
+    # operators' rebuilds and the refinement (the solve proper)
+    spent = {k: [] for k in ("tangent", "combined_bcs", "with_data",
+                             "solve")}
+    steps, last, rebuilds = [], {}, [0]
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def counted(fn):
+        def run(*a, **k):
+            rebuilds[0] += 1
+            return fn(*a, **k)
+        return run
+
+    solve_system = prob.linear_solver.solve_system
+
+    def solve_and_keep(problem, b):
+        x, its = solve_system(problem, b)
+        last.update(b=b, x=x)
+        return x, its
+
+    newton_solve = NonLinearSolver.solve
+
+    def newton_and_record(self, problem, t=0.0):
+        n0 = {k: len(v) for k, v in spent.items()}
+        t1 = time.perf_counter()
+        its = newton_solve(self, problem, t)
+        torch.cuda.synchronize()
+        st = {"t": t, "newton": its, "gmres": list(self.linear_iters),
+              "criterion": self.final_criterion,
+              "seconds": time.perf_counter() - t1,
+              **{k: sum(v[n0[k]:]) for k, v in spent.items()}}
+        # the host check rebuilds the step's system: not in its seconds
+        A_sp = problem.bc_system().get_block(0, 0).to_scipy()
+        st["host_relres"] = _host_relres(np, A_sp, last["b"].concat(),
+                                         last["x"].concat())
+        steps.append(st)
+        return its
+
+    patched = [(NonLinearSolver, "solve", newton_and_record),
+               (PaddedSplitSpMV, "with_data",
+                timed("with_data", PaddedSplitSpMV.with_data)),
+               (refinement, "iterative_refinement",
+                timed("solve", refinement.iterative_refinement)),
+               (linear, "point_cluster_operators",
+                counted(linear.point_cluster_operators))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
+    prob.reassemble = timed("tangent", prob.reassemble)
+    tp.combined_system = timed("combined_bcs", tp.combined_system)
+    prob.bc_builder.apply_to_system = timed(
+        "combined_bcs", prob.bc_builder.apply_to_system)
+    prob.linear_solver.solve_system = solve_and_keep
+    _cuda.reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        drv.advance_nonlinear_bdf(order=2)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t1
+    counts = dict(_cuda.launch_counts)
+    d = prob.solution[0]
+    cache = prob._mixed_cache
+    db, split, prec = cache["db32"], cache["sell"], cache["prec"]
+    min_j = _min_jacobian(torch, dom, d)
+    print(f"hyperelastic: n_dofs={d.shape[0]} n_elements={dom.n_elements} "
+          f"P={db.P} R={db.R} G={db.G} W={db.R + db.G} E={split.Ac.E} "
+          f"K={split.Ac.K} coarse_dim={prec.n_coarse} "
+          f"assembly_s={t_asm:.3f} bdf2_loop_s={t_loop:.3f} "
+          f"setup_once={ {k: round(v, 3) for k, v in prec.timings.items()} }"
+          f" padded_operator_builds={rebuilds[0]} min_det_F={min_j:.4f} "
+          f"max_abs_d={float(d.abs().max()):.4f}")
+    for i, st in enumerate(steps):
+        print(f"hyperelastic step {i + 1}: t={st['t']} newton_its="
+              f"{st['newton']} gmres_per_newton_step={st['gmres']} "
+              f"criterion={st['criterion']:.3e} last_linear_host_f64_relres="
+              f"{st['host_relres']:.3e} step_s={st['seconds']:.3f} "
+              f"(tangent {st['tangent']:.3f}, combined system and BCs "
+              f"{st['combined_bcs']:.3f}, with_data {st['with_data']:.3f}, "
+              f"solve {st['solve']:.3f})", flush=True)
+    print(f"hyperelastic launches: {counts}", flush=True)
+    _check(len(steps) == 3 and steps[0]["newton"] >= 3,
+           f"Newton counts {[s['newton'] for s in steps]}")
+    for st in steps:
+        _check(st["criterion"] <= 1e-6 and st["newton"] < 10,
+               f"Newton did not converge at t={st['t']}")
+        _check(st["host_relres"] <= 1e-8,
+               f"host relres {st['host_relres']} at t={st['t']}")
+    _check(d.dtype == torch.float64 and bool(torch.isfinite(d).all())
+           and min_j > 0, "finite displacement, no inverted element")
+    _check(float(d.reshape(-1, 3)[:, 2].min()) < 0, "body sags under load")
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        _check(counts[k] > 0, f"hyperelastic block launched no {k}")
+    hold_b123(" (hyperelastic)", db, split, prec, counts)
+
+    # one tangent chunk on the card against the same chunk on the CPU
+    E = min(nle._HYPER_CHUNK, dom.n_elements)
+    vc = dom.vert_coords()[:E]
+    de = d.reshape(-1, 3)[torch.as_tensor(dom.elem_nodes()[:E],
+                                          device=dev)]
+    mat = (prob.material, prob.params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_ms = _device_ms(torch, lambda: elem_hyper_residual_tangent(
+        vc, de, 3, "P1", *mat), samples=5, calls=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    R, K = elem_hyper_residual_tangent(vc, de, 3, "P1", *mat)
+    Rc, Kc = elem_hyper_residual_tangent(vc.cpu(), de.cpu(), 3, "P1", *mat)
+    err_t = max(float((R.cpu() - Rc).abs().max() / Rc.abs().max()),
+                float((K.cpu() - Kc).abs().max() / Kc.abs().max()))
+    print(f"hyperelastic tangent chunk: elements={E} ms={chunk_ms:.3f} "
+          f"(device) peak_bytes={peak} card_vs_cpu_rel={err_t:.3e}",
+          flush=True)
+    _check(err_t <= 1e-12, f"tangent chunk card vs CPU {err_t}")
+    del prob, tp, drv, cache, db, split, prec, d, R, K, vc, de
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Newmark, f64 Jacobi: checkpoint at step 5, resume in a fresh
+    # DAESolverInTime and problem; the resumed run must equal the uninterrupted one bit for
+    # bit (nondeterministic ops are reported as warnings)
+    def newmark(t_end, **kw):
+        p = _linelas(torch, Domain.structured(3, args.n_newmark, device=dev),
+                     {"Preconditioner Type": "Jacobi",
+                      "Convergence Tolerance": 1e-10}, dev)
+        p.init_vectors()
+        load = p.rhs[0].clone()
+        d = DAESolverInTime(TimeProblem(p), 0.05, t_end,
+                            rhs_func=lambda t: BlockVector([load * t]),
+                            **kw)
+        d.advance_linear_newmark()
+        return p.solution[0]
+
+    import tempfile
+
+    from feddlib_tpu_torch.fe.domain import Domain
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                tempfile.TemporaryDirectory() as tmp:
+            warnings.simplefilter("always")
+            ck = os.path.join(tmp, "newmark.npz")
+            full = newmark(0.5)
+            newmark(0.25, checkpoint_path=ck)
+            resumed = newmark(0.5, resume_from=ck)
+            again = newmark(0.5)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).splitlines()[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    diff = float((full - resumed).abs().max())
+    print(f"newmark checkpoint: n_dofs={full.shape[0]} steps=10 (resumed "
+          f"after 5) bitwise_equal={torch.equal(full, resumed)} "
+          f"max_abs_diff={diff:.3e} repeat_bitwise_equal="
+          f"{torch.equal(full, again)} max|d|={float(full.abs().max()):.4e}"
+          f" nondeterministic_ops={nondet}", flush=True)
+    _check(torch.equal(full, resumed), "resumed Newmark run bit for bit")
+    _check(torch.equal(full, again), "repeated Newmark run bit for bit")
+    _check(float(full.abs().max()) > 0, "Newmark run moves")
+    _phase("9 unsteady hyperelasticity", t0)
+
+
+def _sell_assemble_plain(torch, sl, plans, flat):
+    """fe/fast_assembly.py sell_assemble with each split through the plain
+    SELL version (B2's comparison): the sum over the splits of
+    P_h @ (split h of the raw values, element-major)."""
+    S, H = plans.S, plans.H
+    f2 = flat.reshape(S, plans.n_elements)
+    out = None
+    for h, sm in enumerate(plans.mats):
+        x = f2[:, h::H].T.reshape(-1)
+        nx2 = (sm.shape[1] + 127) // 128
+        x2d = torch.zeros(nx2 * 128, dtype=sm.vals.dtype, device=x.device)
+        x2d[: sm.shape[1]] = x
+        y = sl.sell_spmv_plain(sm.vals, sm.pidx, sm.bids,
+                               x2d.reshape(nx2, 128), sm.E)[: sm.shape[0]]
+        if sm.spill_rows is not None:
+            y = y.index_add(0, sm.spill_rows, sm.spill_vals * x2d[sm.spill_cols])
+        out = y if out is None else out + y
+    return out
+
+
+def _plan_csr(torch, np, pattern, plans, dev):
+    """The 0/1 plan matrices P_h of sell_assembly_plans as torch CSR tensors
+    (the yardstick of B2 on the assembly)."""
+    import scipy.sparse as sps
+
+    S, H, nE = plans.S, plans.H, plans.n_elements
+    out = []
+    for h in range(H):
+        sel = np.arange(h, nE, H)
+        w = len(sel)
+        raw = np.arange(S)[:, None] * nE + sel[None, :]
+        cols = np.arange(w)[None, :] * S + np.arange(S)[:, None]
+        P = sps.csr_matrix((np.ones(S * w, np.float32),
+                            (pattern.coo_slots[raw.ravel()], cols.ravel())),
+                           shape=(pattern.nnz, w * S))
+        out.append(torch.sparse_csr_tensor(
+            torch.as_tensor(P.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(P.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(P.data, device=dev), size=P.shape))
+    return out
+
+
+def _phase10(torch, np, args, dev, entry):
+    """Element assembly on the card (see the module docstring)."""
+    from feddlib_tpu_torch.fe import assembly as asm
+    from feddlib_tpu_torch.fe import fast_assembly as fa
+    from feddlib_tpu_torch.fe import ops
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.la import sell as sl
+    from feddlib_tpu_torch.la.csr import CsrMatrix
+
+    t0 = time.perf_counter()
+
+    def wall_ms(fn, n=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3
+
+    def both_ways(dom, op, variants=False):
+        """op ("laplace" | "mass") through assemble_fast (the card's
+        default) and through the chunked path; their CSR data agree within
+        1e-13 of max |data|; element kernel and scatter timed apart."""
+        dim, fe, E = dom.dim, dom.fe_type, dom.n_elements
+        assemble = {"laplace": ops.assemble_laplace,
+                    "mass": ops.assemble_mass}[op]
+        th = time.perf_counter()
+        K_f = assemble(dom)
+        os.environ["FEDD_FAST_ASSEMBLY"] = "0"
+        try:
+            K_c = assemble(dom)
+        finally:
+            os.environ.pop("FEDD_FAST_ASSEMBLY", None)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - th
+        _check(np.array_equal(K_f.pattern.indptr, K_c.pattern.indptr)
+               and np.array_equal(K_f.pattern.indices, K_c.pattern.indices),
+               f"{op} {fe}: fast and chunked CSR structure")
+        err = float((K_f.data - K_c.data).abs().max()
+                    / K_c.data.abs().max())
+        vcT, vc = dom.vert_coords_T(), dom.vert_coords()
+        kern = fa._KERNELS[op]
+        ck = {"laplace": asm.elem_laplace, "mass": asm.elem_mass}[op]
+        pat_f, pat_c = fa.pattern_abe(dom, 1), ops._square_pattern(dom, 1)
+
+        def chunked_kernel():
+            return torch.cat([ck(vc[s:s + ops._CHUNK], dim, fe).reshape(-1)
+                              for s in range(0, E, ops._CHUNK)])
+
+        def scatter(pat, flat):
+            m = CsrMatrix(pat, device=dev)
+            m.assemble(flat)
+            return m.data
+
+        flat_f = kern(vcT, dim, fe)
+        flat_c = chunked_kernel()
+        t = {"fast_kernel": lambda: kern(vcT, dim, fe),
+             "fast_scatter": lambda: scatter(pat_f, flat_f),
+             "fast_total": lambda: fa.assemble_fast(dom, op),
+             "chunked_kernel": chunked_kernel,
+             "chunked_scatter": lambda: scatter(pat_c, flat_c),
+             "chunked_total": lambda: ops._assemble_chunked(
+                 dom, pat_c, lambda v: ck(v, dim, fe))}
+        if variants:
+            # the choice of the card's scatter: the f64 scatter-set taken
+            # (fast_scatter), the JAX package's three f32 parts
+            # (assemble_csr_data_tri) and the former index_add_ (atomics)
+            kind, pos, Dp = pat_f._device_plan(dev)
+            nnz = pat_f.nnz
+            idx = torch.as_tensor(pat_f.coo_slots, device=dev)
+
+            def tri():
+                v1 = flat_f.float()
+                r1 = flat_f - v1.double()
+                v2 = r1.float()
+                v3 = (r1 - v2.double()).float()
+                total = torch.zeros(nnz, dtype=torch.float64, device=dev)
+                for part in (v1, v2, v3):
+                    buf = torch.zeros(nnz * Dp, device=dev)
+                    buf[pos] = part
+                    total += buf.reshape(nnz, Dp).double().sum(1)
+                return total
+
+            _check(kind == "set" and float((tri() - scatter(pat_f, flat_f))
+                                           .abs().max()) <= 1e-13 * float(
+                K_f.data.abs().max()), "tri-split scatter")
+            t["tri_f32_scatter"] = tri
+            t["index_add_scatter"] = lambda: torch.zeros(
+                nnz, dtype=torch.float64, device=dev).index_add_(0, idx,
+                                                                 flat_f)
+        dev_ms = {k: _device_ms(torch, fn, samples=5, calls=3)
+                  for k, fn in t.items()}
+        host_ms = {k: wall_ms(fn) for k, fn in t.items()}
+        print(f"assembly {op} {fe} E={E} n_raw={flat_f.numel()} "
+              f"nnz={K_f.nnz} Dp={pat_f.duplication_plan()[1]} "
+              f"fast_vs_chunked={err:.3e} first_call_s={first_s:.3f} (the "
+              f"host patterns and plans inside) device_ms="
+              f"{ {k: round(v, 4) for k, v in dev_ms.items()} } wall_ms="
+              f"{ {k: round(v, 4) for k, v in host_ms.items()} }",
+              flush=True)
+        _check(err <= 1e-13, f"{op} {fe}: fast vs chunked {err}")
+        return K_f
+
+    dom = Domain.structured(3, args.n_asm, device=dev)
+    K = both_ways(dom, "laplace", variants=True)
+    both_ways(dom, "mass")
+    dom2 = Domain.structured(3, args.n_asm_p2, device=dev).p2_domain()
+    both_ways(dom2, "laplace")
+    del dom2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B2 as the scatter: the P1 Laplace plan in f32, the JAX split rule
+    pat = fa.pattern_abe(dom, 1)
+    th = time.perf_counter()
+    plans = fa.sell_assembly_plans(pat, dom.n_elements, dtype=torch.float32,
+                                   device=dev)
+    torch.cuda.synchronize()
+    plans_s = time.perf_counter() - th
+    flat32 = fa.elem_laplace_flat_T(dom.vert_coords_T(), 3, "P1").float()
+    _cuda.reset_launch_counts()
+    y = fa.sell_assemble(plans, flat32)
+    torch.cuda.synchronize()
+    launches = _cuda.launch_counts["sell_spmv"]
+    y_p = _sell_assemble_plain(torch, sl, plans, flat32)
+    err = float((y - y_p).abs().max())
+    ref32 = K.data.float()
+    rel = float((y - ref32).abs().max() / ref32.abs().max())
+    mats = plans.mats
+    slots = sum(m.vals.numel() for m in mats)
+    nonzero = sum(int((m.vals != 0).sum()) for m in mats)
+    spill = sum(0 if m.spill_rows is None else m.spill_rows.numel()
+                for m in mats)
+    x2d_n = sum((m.shape[1] + 127) // 128 * 128 for m in mats)
+    print(f"B2 shapes (assembly plan): splits={plans.H} S={plans.S} "
+          f"elements_per_split={mats[0].shape[1] // plans.S} "
+          f"n_raw={flat32.numel()} nnz={pat.nnz} E={[m.E for m in mats][:1]}"
+          f" K={[m.K for m in mats][:1]} nchunks={mats[0].vals.shape[0]} "
+          f"slots={slots} nonzero={nonzero} spill={spill} "
+          f"plans_build_s={plans_s:.3f} plane_bytes={6 * slots} "
+          f"launches_per_assembly={launches} vs_plain={err:.3e} "
+          f"vs_f64_assembly_rel={rel:.3e}", flush=True)
+    _check(launches == plans.H, f"B2 launched {launches} times, not "
+           f"{plans.H}")
+    _check(err <= 1e-6 * float(y_p.abs().max()), f"B2 assembly error {err}")
+    _check(rel <= 1e-5, f"SELL assembly vs f64 assembly {rel}")
+    P_t = _plan_csr(torch, np, pat, plans, dev)
+
+    def lib(flat):
+        g2 = flat.reshape(plans.S, plans.n_elements)
+        return sum(P_t[h] @ g2[:, h::plans.H].T.reshape(-1)
+                   for h in range(plans.H))
+
+    _check(float((lib(flat32) - y_p).abs().max())
+           <= 1e-5 * float(y_p.abs().max()), "B2 assembly yardstick")
+    b_bytes = (6 * slots + 4 * sum(m.bids.numel() for m in mats)
+               + 4 * x2d_n + 4 * sum(m.vals.numel() // m.E for m in mats))
+    free_bytes = 4 * flat32.numel() + 4 * pat.nnz
+    cold = {"ms": _device_ms(torch, _cold_calls(
+        lambda f: fa.sell_assemble(plans, f), flat32), samples=10, calls=3),
+        "library_ms": _device_ms(torch, _cold_calls(lib, flat32),
+                                 samples=10, calls=3)}
+    entry("B2 sell_spmv (assembly plan)", "feddlib_tpu_torch/csrc/sell.cu",
+          "feddlib_tpu/la/sell.py:354", launches, err,
+          _device_ms(torch, lambda: fa.sell_assemble(plans, flat32),
+                     samples=10, calls=3),
+          _device_ms(torch, lambda: _sell_assemble_plain(torch, sl, plans,
+                                                         flat32),
+                     samples=3, calls=1),
+          _bound(b_bytes, 2 * nonzero, PEAK_F32_S),
+          _device_ms(torch, lambda: lib(flat32), samples=10, calls=3),
+          l2_cold=cold,
+          bounds={"planes_as_stored_ms": _bound(b_bytes, 0, PEAK_F32_S)[0],
+                  "raw_values_in_csr_out_ms": _bound(free_bytes, 0,
+                                                     PEAK_F32_S)[0]},
+          wall_ms={"sell_assemble": wall_ms(
+              lambda: fa.sell_assemble(plans, flat32)),
+              "library": wall_ms(lambda: lib(flat32))})
+    del plans, P_t, y, y_p, flat32, K, dom, pat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Q2 hex: vector Laplace and the P1-disc divergence, card against CPU
+    dh = Domain.structured_hex(3, args.n_hex, "Q2", device=dev)
+    dc = Domain.structured_hex(3, args.n_hex, "Q2", device="cpu")
+    dc._patterns = dh._patterns  # host patterns, built once
+    th = time.perf_counter()
+    A = ops.assemble_hex_laplace_vec(dh)
+    B, BT = ops.assemble_divergence_p1disc(dh)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - th
+    th = time.perf_counter()
+    Ac = ops.assemble_hex_laplace_vec(dc)
+    Bc, _ = ops.assemble_divergence_p1disc(dc)
+    cpu_s = time.perf_counter() - th
+    errs = [float((m.data.cpu() - c.data).abs().max() / c.data.abs().max())
+            for m, c in ((A, Ac), (B, Bc))]
+    print(f"hex Q2: elements={dh.n_elements} velocity_dofs={A.shape[0]} "
+          f"A_nnz={A.nnz} B={B.shape} B_nnz={B.nnz} card_s={card_s:.3f} "
+          f"(patterns inside) cpu_s={cpu_s:.3f} card_vs_cpu_rel={errs}",
+          flush=True)
+    _check(max(errs) <= 1e-12, f"hex card vs CPU {errs}")
+    _check(BT.shape == (B.shape[1], B.shape[0]), "B transpose")
+    _phase("10 element assembly", t0)
+
+
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=64,
@@ -594,6 +1104,17 @@ def _parser():
     ap.add_argument("--n-ns", type=int, default=12,
                     help="cells per side of the cavity's pressure cube")
     ap.add_argument("--ns-clusters", type=int, default=64)
+    ap.add_argument("--n-hyper", type=int, default=32,
+                    help="cells per side of the hyperelastic block's cube")
+    ap.add_argument("--hyper-clusters", type=int, default=64)
+    ap.add_argument("--n-newmark", type=int, default=8,
+                    help="cells per side of the checkpointed Newmark cube")
+    ap.add_argument("--n-asm", type=int, default=64,
+                    help="cells per side of the P1 assembly cube")
+    ap.add_argument("--n-asm-p2", type=int, default=32,
+                    help="cells per side of the P2 assembly cube")
+    ap.add_argument("--n-hex", type=int, default=24,
+                    help="cells per side of the Q2 hex cube")
     return ap
 
 
@@ -1187,6 +1708,12 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     _phase8(torch, np, args, dev, hold_b123)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase9(torch, np, args, dev, hold_b123)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase10(torch, np, args, dev, entry)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch.fe import reference as ref
-from feddlib_tpu_torch.la.csr import SparsityPattern
+from feddlib_tpu_torch.la.csr import SparsityPattern, scatter_sum
 
 f64 = torch.float64
 
@@ -338,12 +338,11 @@ def vectorize_elem_mat(elem_mat_blocks: torch.Tensor) -> torch.Tensor:
 def assemble_vector(dof_ids: np.ndarray, elem_vecs: torch.Tensor,
                     n_dofs: int) -> torch.Tensor:
     """Scatter-add element vectors [E, nloc] (node ids) or [E, nloc, comp]
-    (NodeWise dofs node*comp + c) into a global vector."""
+    (NodeWise dofs node*comp + c) into a global vector (in a fixed order
+    on the card: `la.csr.scatter_sum`)."""
     ids = np.asarray(dof_ids)
     if elem_vecs.dim() == 3:
         c = elem_vecs.shape[2]
         ids = ids[:, :, None] * c + np.arange(c)[None, None, :]
     idx = torch.as_tensor(ids.reshape(-1), device=elem_vecs.device)
-    return torch.zeros(n_dofs, dtype=elem_vecs.dtype,
-                       device=elem_vecs.device).index_add_(
-        0, idx, elem_vecs.reshape(-1))
+    return scatter_sum(elem_vecs.reshape(-1), idx, n_dofs)

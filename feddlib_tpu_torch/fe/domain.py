@@ -1,8 +1,10 @@
 """Domain — user-facing handle tying mesh + FE space.
 
-Counterpart of feddlib_tpu/fe/domain.py for P1/P2 simplex meshes.  The mesh
-stays on the host as numpy arrays; the element vertex coordinates used by
-assembly are built once on the domain's device.
+Counterpart of feddlib_tpu/fe/domain.py for P1/P2 simplex and Q1/Q2/Q2-20
+quad/hex meshes.  The mesh stays on the host as numpy arrays; the element
+vertex coordinates used by assembly are built once on the domain's device,
+element-first for the chunked kernels and element-last for the fast ones
+(fe/fast_assembly.py).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class Domain:
         self.parent_p1 = parent_p1
         self.device = resolve_device(device)
         self._vert_coords = None
+        self._vert_coords_T = None
         self._patterns = {}  # cache: op-key → SparsityPattern
 
     # -- constructors --------------------------------------------------------
@@ -41,6 +44,17 @@ class Domain:
         p1 = cls(build_structured_mesh(dim, n_cells, fe_type="P1", **kw),
                  device=device)
         return p1 if fe_type == "P1" else p1.p2_domain()
+
+    @classmethod
+    def structured_hex(cls, dim: int, n_cells, fe_type: str = "Q1",
+                       device="cuda", **kw) -> "Domain":
+        """Structured quad/hex domain (Q1 | Q2 | Q2-20)."""
+        from feddlib_tpu_torch.fe.hex import build_hex_mesh
+
+        if fe_type not in ("Q1", "Q2", "Q2-20"):
+            raise ValueError(f"unsupported hex fe_type {fe_type!r}")
+        return cls(build_hex_mesh(dim, n_cells, fe_type=fe_type, **kw),
+                   device=device)
 
     @classmethod
     def from_file(cls, path: str, fe_type: str = "P1",
@@ -81,6 +95,15 @@ class Domain:
     def is_hex(self) -> bool:
         return self.fe_type.startswith("Q")
 
+    def n_basis(self) -> int:
+        if self.is_hex:
+            from feddlib_tpu_torch.fe.hex import hex_n_basis
+
+            return hex_n_basis(self.fe_type, self.dim)
+        from feddlib_tpu_torch.fe import reference as ref
+
+        return ref.n_basis(self.dim, self.fe_type)
+
     # -- assembly inputs ----------------------------------------------------
     def vert_coords(self) -> torch.Tensor:
         """[E, dim+1, dim] f64 vertex coordinates of each element (geometry
@@ -95,6 +118,22 @@ class Domain:
                 device=self.device)
             self._vert_coords = pts[conn]
         return self._vert_coords
+
+    def vert_coords_T(self) -> torch.Tensor:
+        """[nv*dim, E] f64 element-last vertex coordinates: row v*dim + i is
+        coordinate i of local vertex v across all elements — the layout the
+        element-last kernels of fe/fast_assembly.py read."""
+        if self._vert_coords_T is None:
+            nv = self.mesh.vertices_per_element
+            ptsT = torch.as_tensor(np.ascontiguousarray(self.mesh.points.T),
+                                   dtype=torch.float64, device=self.device)
+            connT = torch.as_tensor(np.ascontiguousarray(
+                self.mesh.elements[:, :nv].T.astype(np.int64)),
+                device=self.device)                  # [nv, E]
+            vcT = ptsT[:, connT]                     # [dim, nv, E]
+            self._vert_coords_T = vcT.transpose(0, 1).reshape(
+                nv * self.dim, -1).contiguous()      # [nv*dim, E]
+        return self._vert_coords_T
 
     def elem_nodes(self) -> np.ndarray:
         return self.mesh.elements

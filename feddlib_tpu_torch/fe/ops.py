@@ -1,18 +1,21 @@
 """Global assembly operations: Domain → CsrMatrix / vectors.
 
-Counterpart of feddlib_tpu/fe/ops.py for simplex Laplace (scalar and
-vector), mass, stress, linear elasticity, the Navier–Stokes convection and
-Newton blocks, the mixed divergence pair, the Bochev–Dohrmann
-stabilization and the volume and surface loads, through the chunked element
-path (ops.py:48-91 of the JAX package) on every device.  The JAX package
-switches to its element-last fast assembly (fe/fast_assembly.py) on
-accelerators; that module is not ported yet (ROADMAP.md A7, steps 3–4).
+Counterpart of feddlib_tpu/fe/ops.py: simplex Laplace (scalar and vector),
+mass, stress, linear elasticity, the Navier–Stokes convection and Newton
+blocks, the mixed divergence pair, the Bochev–Dohrmann stabilization and
+the volume and surface loads; the quad/hex Laplace, mass and load and the
+Q2/P1-disc operators (fe/hex.py).  Each runs the chunked element path
+(ops.py:48-91 of the JAX package) — except where the JAX package switches
+to its element-last fast assembly (fe/fast_assembly.py) on an
+accelerator: scalar P1/P2 Laplace and mass and the two advection
+operators, which take it for a CUDA domain (`fast_assembly.use_fast`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from feddlib_tpu_torch.fe import assembly as asm
@@ -49,17 +52,37 @@ def _square_pattern(domain: Domain, dofs_per_node: int):
 
 
 def _require_simplex(domain: Domain) -> None:
+    """The operators the JAX package assembles with its simplex kernels
+    only: on a quad/hex domain it fails inside them; the port says so."""
     if domain.is_hex:
         raise NotImplementedError(
-            "quad/hex spaces are not ported yet (ROADMAP.md A7, fe/hex.py)")
+            f"{domain.fe_type} spaces: the JAX package assembles this "
+            f"operator on simplices only (quad/hex: assemble_laplace, "
+            f"assemble_mass, assemble_rhs, assemble_hex_laplace_vec and the "
+            f"P1-disc operators)")
+
+
+def _fast(domain: Domain) -> bool:
+    from feddlib_tpu_torch.fe import fast_assembly as fa
+
+    return (not domain.is_hex and fa.use_fast(domain.device)
+            and fa.supported(domain.dim, domain.fe_type))
 
 
 def assemble_laplace(domain: Domain) -> CsrMatrix:
-    """Scalar Laplace stiffness (FE::assemblyLaplace) on P1/P2 simplices."""
-    _require_simplex(domain)
-    return _assemble_chunked(
-        domain, _square_pattern(domain, 1),
-        lambda vc: asm.elem_laplace(vc, domain.dim, domain.fe_type))
+    """Scalar Laplace stiffness (FE::assemblyLaplace) on P1/P2 simplices
+    or Q1/Q2/Q2-20 quads/hexes; the element-last fast path on the card."""
+    if _fast(domain):
+        from feddlib_tpu_torch.fe import fast_assembly as fa
+
+        return fa.assemble_fast(domain, "laplace")
+    if domain.is_hex:
+        from feddlib_tpu_torch.fe.hex import hex_elem_laplace
+
+        kernel = lambda vc: hex_elem_laplace(vc, domain.dim, domain.fe_type)
+    else:
+        kernel = lambda vc: asm.elem_laplace(vc, domain.dim, domain.fe_type)
+    return _assemble_chunked(domain, _square_pattern(domain, 1), kernel)
 
 
 def assemble_laplace_vec(domain: Domain, viscosity: float = 1.0) -> CsrMatrix:
@@ -73,8 +96,8 @@ def assemble_laplace_vec(domain: Domain, viscosity: float = 1.0) -> CsrMatrix:
 
 
 def assemble_mass(domain: Domain, dofs_per_node: int = 1) -> CsrMatrix:
-    """Mass matrix, scalar or vector (FE::assemblyMass)."""
-    _require_simplex(domain)
+    """Mass matrix, scalar or vector (FE::assemblyMass), on simplices or
+    quads/hexes; a scalar simplex mass takes the fast path on the card."""
     eye = torch.eye(dofs_per_node, dtype=torch.float64, device=domain.device)
 
     def post(M):
@@ -83,9 +106,18 @@ def assemble_mass(domain: Domain, dofs_per_node: int = 1) -> CsrMatrix:
                 torch.einsum("eab,ij->eabij", M, eye))
         return M
 
+    if dofs_per_node == 1 and _fast(domain):
+        from feddlib_tpu_torch.fe import fast_assembly as fa
+
+        return fa.assemble_fast(domain, "mass")
+    if domain.is_hex:
+        from feddlib_tpu_torch.fe.hex import hex_elem_mass
+
+        kernel = lambda vc: hex_elem_mass(vc, domain.dim, domain.fe_type)
+    else:
+        kernel = lambda vc: asm.elem_mass(vc, domain.dim, domain.fe_type)
     return _assemble_chunked(
-        domain, _square_pattern(domain, dofs_per_node),
-        lambda vc: asm.elem_mass(vc, domain.dim, domain.fe_type), post=post)
+        domain, _square_pattern(domain, dofs_per_node), kernel, post=post)
 
 
 def assemble_stress(domain: Domain, viscosity: float = 1.0) -> CsrMatrix:
@@ -115,8 +147,12 @@ def _vector_identity(domain: Domain):
 
 def assemble_advection(domain: Domain, u: torch.Tensor) -> CsrMatrix:
     """N(u): the (u·∇)u convection block, expanded to vector dofs
-    (FE::assemblyAdvectionVecField)."""
+    (FE::assemblyAdvectionVecField); the fast path on the card."""
     _require_simplex(domain)
+    if _fast(domain):
+        from feddlib_tpu_torch.fe import fast_assembly as fa
+
+        return fa.assemble_advection_fast(domain, u_elem_values(domain, u))
     return _assemble_chunked(
         domain, _square_pattern(domain, domain.dim),
         lambda vc, uc: asm.elem_advection(vc, uc, domain.dim,
@@ -126,8 +162,13 @@ def assemble_advection(domain: Domain, u: torch.Tensor) -> CsrMatrix:
 
 def assemble_advection_in_u(domain: Domain, u: torch.Tensor) -> CsrMatrix:
     """W(u): the Newton linearisation (∇u)·δu
-    (FE::assemblyAdvectionInUVecField)."""
+    (FE::assemblyAdvectionInUVecField); the fast path on the card."""
     _require_simplex(domain)
+    if _fast(domain):
+        from feddlib_tpu_torch.fe import fast_assembly as fa
+
+        return fa.assemble_advection_in_u_fast(domain,
+                                               u_elem_values(domain, u))
     return _assemble_chunked(
         domain, _square_pattern(domain, domain.dim),
         lambda vc, uc: asm.elem_advection_in_u(vc, uc, domain.dim,
@@ -164,6 +205,64 @@ def assemble_divergence(dom_u: Domain, dom_p: Domain):
     return B, B.transpose()
 
 
+def assemble_hex_laplace_vec(domain: Domain, viscosity: float = 1.0
+                             ) -> CsrMatrix:
+    """Vector Laplace on Q-family hex meshes (identity expansion of the
+    scalar hex stiffness — FE::assemblyLaplaceVecField for Q spaces)."""
+    from feddlib_tpu_torch.fe.hex import hex_elem_laplace
+
+    dim = domain.dim
+    return _assemble_chunked(
+        domain, _square_pattern(domain, dim),
+        lambda vc: hex_elem_laplace(vc, dim, domain.fe_type) * viscosity,
+        post=_vector_identity(domain))
+
+
+def _p1disc_rows(dom_u: Domain) -> np.ndarray:
+    """[E, dim+1] element-local P1-disc pressure dofs e·(dim+1)+a."""
+    dim = dom_u.dim
+    return (np.arange(dom_u.n_elements)[:, None] * (dim + 1)
+            + np.arange(dim + 1)[None, :])
+
+
+def assemble_divergence_p1disc(dom_u: Domain):
+    """Mixed divergence blocks B (P1-disc pressure rows × Qk velocity
+    cols) and Bᵀ — the Q2/P1-disc pairing (FE::assemblyDivAndDivT P1-disc
+    branch).  Pressure dofs are element-local: gid = e·(dim+1)+a."""
+    from feddlib_tpu_torch.fe.hex import hex_elem_divergence_p1disc
+
+    dim = dom_u.dim
+    n_p = dom_u.n_elements * (dim + 1)
+
+    def build():
+        return asm.scatter_pattern(_p1disc_rows(dom_u), dom_u.elem_dofs(dim),
+                                   n_p, dom_u.n_dofs(dim))
+
+    B = _assemble_chunked(
+        dom_u, dom_u.pattern(("div_p1disc", dim), build),
+        lambda vc: hex_elem_divergence_p1disc(vc, dim, dom_u.fe_type),
+        post=lambda Bm: Bm.reshape(Bm.shape[0], Bm.shape[1], -1))
+    return B, B.transpose()
+
+
+def assemble_mass_p1disc(dom_u: Domain) -> CsrMatrix:
+    """P1-disc pressure mass matrix (block-diagonal, element-local dofs) —
+    the pressure-mass Schur approximation of Q2/P1-disc block
+    preconditioners."""
+    from feddlib_tpu_torch.fe.hex import hex_elem_mass_p1disc
+
+    dim = dom_u.dim
+    n_p = dom_u.n_elements * (dim + 1)
+    rows = _p1disc_rows(dom_u)
+
+    def build():
+        return asm.scatter_pattern(rows, rows, n_p, n_p)
+
+    return _assemble_chunked(
+        dom_u, dom_u.pattern(("mass_p1disc", dim), build),
+        lambda vc: hex_elem_mass_p1disc(vc, dim))
+
+
 def assemble_bd_stabilization(dom_p: Domain) -> CsrMatrix:
     """Bochev–Dohrmann P1–P1 pressure stabilization block C
     (FE::assemblyBDStabilization)."""
@@ -195,10 +294,17 @@ def assemble_rhs(domain: Domain, f: Callable, dofs_per_node: int = 1,
     """Volume source term (FE::assemblyRHS).  f(x) takes the quadrature
     points component-first (x[0] is the first coordinate) and returns a
     scalar or a tensor broadcastable to the points (dofs_per_node == 1),
-    or one such value per component (see assembly._eval_source)."""
-    _require_simplex(domain)
-    vec = asm.elem_rhs(domain.vert_coords(), domain.dim, domain.fe_type,
-                       f, degree=degree, n_comp=dofs_per_node)
+    or one such value per component (see assembly._eval_source).  On a
+    quad/hex domain the hex rule of fe/hex.py is used (`degree` is then
+    ignored, as in the JAX package)."""
+    if domain.is_hex:
+        from feddlib_tpu_torch.fe.hex import hex_elem_rhs
+
+        vec = hex_elem_rhs(domain.vert_coords(), domain.dim, domain.fe_type,
+                           f, n_comp=dofs_per_node)
+    else:
+        vec = asm.elem_rhs(domain.vert_coords(), domain.dim, domain.fe_type,
+                           f, degree=degree, n_comp=dofs_per_node)
     return asm.assemble_vector(domain.elem_nodes(), vec,
                                domain.n_dofs(dofs_per_node))
 

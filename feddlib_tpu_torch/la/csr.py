@@ -6,7 +6,11 @@ Counterpart of feddlib_tpu/la/csr.py.  The insert → fillComplete flow is:
    + an assembly plan mapping every raw COO contribution to its slot
    (`SparsityPattern.from_coo`, numpy).
 2. *Numeric phase* (device, per assembly): a segment sum of the raw values
-   into their slots (`index_add_`).
+   into their slots.  On the CPU that is `index_add_`; on the card, where
+   `index_add_` sums with atomics in a run-dependent order, each value is
+   scatter-SET to a unique position slot*Dp + dup of a [nnz, Dp] buffer
+   (`SparsityPattern.duplication_plan`) and the rows are summed, so two
+   assemblies of one pattern are bitwise equal.
 
 The apply is a plain-torch padded-ELL gather (the f64 refinement residual
 of the mixed-precision solve; no kernel computes it in the JAX package
@@ -69,6 +73,84 @@ class SparsityPattern:
         return np.repeat(np.arange(self.n_rows, dtype=np.int64),
                          self.row_lengths())
 
+    def duplication_plan(self):
+        """(pos [n_raw] int64, Dp): the unique scatter target slot*Dp + dup
+        of each raw COO contribution (dup = its index among the entries of
+        its slot, Dp = the most duplicates, padded to 8), as in the JAX
+        package; (None, 0) if Dp > 64 or nnz*Dp overflows int32.  None
+        without a COO plan.  Cached on the pattern (host numpy)."""
+        cached = getattr(self, "_dup_plan", None)
+        if cached is None:
+            slots = self.coo_slots
+            if slots is None:
+                return None
+            order = np.argsort(slots, kind="stable")
+            ss = slots[order]
+            starts = np.searchsorted(ss, np.arange(self.nnz))
+            dup = np.empty(len(slots), np.int64)
+            dup[order] = np.arange(len(slots)) - starts[ss]
+            D = int(dup.max()) + 1 if len(dup) else 1
+            Dp = 8 * ((D + 7) // 8)
+            if Dp > 64 or self.nnz * Dp >= 2 ** 31:
+                cached = (None, 0)
+            else:
+                cached = (slots * Dp + dup, Dp)
+            object.__setattr__(self, "_dup_plan", cached)
+        return cached
+
+    def _device_plan(self, device):
+        """The assembly plan of `assemble` on a CUDA device (any device for
+        `assemble_planned`), uploaded once per device:
+        ("set", pos, Dp) from duplication_plan, else ("sorted", order,
+        lengths) for a segmented sum over the contributions sorted by slot."""
+        plans = getattr(self, "_dev_plans", None)
+        if plans is None:
+            plans = {}
+            object.__setattr__(self, "_dev_plans", plans)
+        plan = plans.get(device)
+        if plan is None:
+            pos, Dp = self.duplication_plan()
+            if pos is not None:
+                plan = ("set", torch.as_tensor(pos, device=device), Dp)
+            else:
+                order = np.argsort(self.coo_slots, kind="stable")
+                lengths = np.bincount(self.coo_slots, minlength=self.nnz)
+                plan = ("sorted", torch.as_tensor(order, device=device),
+                        torch.as_tensor(lengths, device=device))
+            plans[device] = plan
+        return plan
+
+
+def segment_sum_sorted(vals: torch.Tensor, order: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """Deterministic segment sum: the values taken in `order` (sorted by
+    target) fall into consecutive segments of `lengths`."""
+    return torch.segment_reduce(vals[order], "sum", lengths=lengths)
+
+
+def assemble_planned(vals: torch.Tensor, plan, nnz: int) -> torch.Tensor:
+    """CSR data from raw values through a plan of
+    `SparsityPattern._device_plan`, in a fixed summation order: scatter-set
+    to the unique positions of a [nnz, Dp] buffer and sum its rows, or the
+    segmented sum over the slot-sorted values."""
+    kind, a, b = plan
+    if kind == "set":
+        buf = torch.zeros(nnz * b, dtype=vals.dtype, device=vals.device)
+        buf[a] = vals
+        return buf.reshape(nnz, b).sum(1)
+    return segment_sum_sorted(vals, a, b)
+
+
+def scatter_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """out[i] = sum of vals[idx == i], out of length n.  `index_add_` on
+    the CPU; on the card the device-sorted segmented sum, whose order is
+    fixed, so that repeated calls are bitwise equal."""
+    if vals.device.type == "cpu":
+        return torch.zeros(n, dtype=vals.dtype).index_add_(0, idx, vals)
+    order = torch.argsort(idx, stable=True)
+    lengths = torch.bincount(idx, minlength=n)
+    return segment_sum_sorted(vals, order, lengths)
+
 
 class CsrMatrix:
     """Sparse matrix = static SparsityPattern + device value buffer.
@@ -115,14 +197,22 @@ class CsrMatrix:
     # -- assembly (numeric fillComplete) ------------------------------------
     def assemble(self, coo_vals: torch.Tensor) -> None:
         """Sum raw COO contributions (in the order given to from_coo) into
-        the CSR value buffer."""
+        the CSR value buffer.  Deterministic on every device: the card
+        takes the duplication plan's scatter-set and row sums (or, where
+        the plan is None, a segmented sum over the slot-sorted values),
+        never `index_add_`'s atomics."""
         slots = self.pattern.coo_slots
         if slots is None:
             raise ValueError("pattern has no COO assembly plan")
         vals = coo_vals.to(device=self.device, dtype=self.dtype).reshape(-1)
-        idx = torch.as_tensor(slots, device=self.device)
-        self.data = torch.zeros(self.pattern.nnz, dtype=self.dtype,
-                                device=self.device).index_add_(0, idx, vals)
+        nnz = self.pattern.nnz
+        if self.device.type == "cpu":
+            idx = torch.as_tensor(slots)
+            self.data = torch.zeros(nnz, dtype=self.dtype).index_add_(
+                0, idx, vals)
+            return
+        self.data = assemble_planned(
+            vals, self.pattern._device_plan(self.device), nnz)
 
     # -- shape / properties -------------------------------------------------
     @property

@@ -1,8 +1,12 @@
 from feddlib_tpu_torch.problems.base import NonLinearProblem, Problem
 from feddlib_tpu_torch.problems.laplace import Laplace
 from feddlib_tpu_torch.problems.linelas import LinElas
+from feddlib_tpu_torch.problems.misc import LaplaceBlocks, LinElasFirstOrder
 from feddlib_tpu_torch.problems.navier_stokes import NavierStokes
+from feddlib_tpu_torch.problems.nonlin_elasticity import (Elasticity,
+                                                          NonLinElasticity)
 from feddlib_tpu_torch.problems.stokes import Stokes
 
 __all__ = ["Problem", "NonLinearProblem", "Laplace", "LinElas", "Stokes",
-           "NavierStokes"]
+           "NavierStokes", "NonLinElasticity", "Elasticity", "LaplaceBlocks",
+           "LinElasFirstOrder"]

@@ -641,3 +641,162 @@ def test_two_field_mixed_path_runs_b123_on_card(hopper):
     xs = torch.randn(inv.shape[0], inv.shape[2], device=hopper)
     assert _rel(dk.dense_block_mv(inv, xs), dk.dense_block_mv_plain(inv, xs)) \
         < 1e-5
+
+
+# -- deterministic assembly, the fast path, B2 as the scatter, hyperelasticity --
+
+@pytest.mark.gpu
+def test_csr_assembly_bitwise_repeatable_on_card(hopper):
+    """CsrMatrix.assemble on a CUDA tensor takes the duplication plan's
+    scatter-set (never index_add_'s atomics): two assemblies of one
+    pattern are bitwise equal and equal the CPU assembly within 1e-14
+    relative; so is the sorted segmented sum of a pattern whose plan is
+    None, and la.csr.scatter_sum (the load vectors)."""
+    from feddlib_tpu_torch.fe import fast_assembly as fa
+    from feddlib_tpu_torch.la.csr import CsrMatrix, scatter_sum
+
+    pat = fa.pattern_abe(Domain.structured(3, 12, device=hopper), 1)
+    vals = np.random.default_rng(0).standard_normal(len(pat.coo_slots))
+    ref = CsrMatrix(pat, device="cpu")
+    ref.assemble(torch.as_tensor(vals))
+    for force_sorted in (False, True):
+        if force_sorted:
+            object.__setattr__(pat, "_dup_plan", (None, 0))
+            object.__setattr__(pat, "_dev_plans", {})
+        got = []
+        for _ in range(2):
+            m = CsrMatrix(pat, device=hopper)
+            m.assemble(torch.as_tensor(vals, device=hopper))
+            got.append(m.data)
+        assert pat._dev_plans[hopper][0] == ("sorted" if force_sorted
+                                            else "set")
+        assert torch.equal(got[0], got[1])
+        assert _rel(got[0].cpu(), ref.data) < 1e-14
+    v = torch.as_tensor(vals, device=hopper)
+    idx = torch.as_tensor(pat.coo_slots, device=hopper)
+    a, b = scatter_sum(v, idx, pat.nnz), scatter_sum(v, idx, pat.nnz)
+    assert torch.equal(a, b) and _rel(a.cpu(), ref.data) < 1e-14
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fe", ["P1", "P2"])
+def test_fast_assembly_matches_chunked_on_card(hopper, fe):
+    """The element-last Laplace and mass (the card's default) against the
+    chunked path on the card and against the CPU: same CSR structure,
+    values within 1e-13 of max |data|; the advection operators too."""
+    import os
+
+    from feddlib_tpu_torch.fe import fast_assembly as fa
+    from feddlib_tpu_torch.fe import ops
+
+    dom = Domain.structured(3, 6, fe_type=fe, device=hopper)
+    cpu = Domain.structured(3, 6, fe_type=fe, device="cpu")
+    assert fa.use_fast(dom.device) and not fa.use_fast(cpu.device)
+    u = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        dom.n_dofs(3)))
+    fast = [ops.assemble_laplace(dom), ops.assemble_mass(dom),
+            ops.assemble_advection(dom, u.to(hopper)),
+            ops.assemble_advection_in_u(dom, u.to(hopper))]
+    os.environ["FEDD_FAST_ASSEMBLY"] = "0"
+    try:
+        dom2 = Domain.structured(3, 6, fe_type=fe, device=hopper)
+        chunked = [ops.assemble_laplace(dom2), ops.assemble_mass(dom2),
+                   ops.assemble_advection(dom2, u.to(hopper)),
+                   ops.assemble_advection_in_u(dom2, u.to(hopper))]
+    finally:
+        os.environ.pop("FEDD_FAST_ASSEMBLY", None)
+    host = [ops.assemble_laplace(cpu), ops.assemble_mass(cpu)]
+    for i, (f, c) in enumerate(zip(fast, chunked)):
+        scale = float(c.data.abs().max())
+        assert abs(f.to_scipy() - c.to_scipy()).max() <= 1e-13 * scale
+        if i < 2:
+            assert np.array_equal(f.pattern.indices, c.pattern.indices)
+            assert _rel(f.data.cpu(), host[i].data) < 1e-13
+
+
+@pytest.mark.gpu
+def test_sell_assemble_b2_on_card(hopper):
+    """sell_assemble on the P1 Laplace plan of Domain.structured(3, 8) in
+    f32, 3 splits: B2 launches once a split and its result is within
+    1e-6 of max |y| of the plain SELL version (the same plans on the CPU),
+    and within 1e-5 relative of the f64 assembly."""
+    from feddlib_tpu_torch.fe import fast_assembly as fa
+
+    dom = Domain.structured(3, 8, device=hopper)
+    pat = fa.pattern_abe(dom, 1)
+    flat = fa.elem_laplace_flat_T(dom.vert_coords_T(), 3, "P1")
+    plans = fa.sell_assembly_plans(pat, dom.n_elements, n_splits=3,
+                                   device=hopper)
+    plans_cpu = fa.sell_assembly_plans(pat, dom.n_elements, n_splits=3,
+                                       device="cpu")
+    before = _cuda.launch_counts["sell_spmv"]
+    y = fa.sell_assemble(plans, flat.float())
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["sell_spmv"] == before + 3
+    y_p = fa.sell_assemble(plans_cpu, flat.float().cpu())
+    assert float((y.cpu() - y_p).abs().max()) <= 1e-6 * float(
+        y_p.abs().max())
+    ref = fa.assemble_fast(dom, "laplace").data
+    assert _rel(y.double(), ref) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("material", ["StVK", "Neo-Hooke", "Mooney-Rivlin"])
+def test_hyperelastic_tangent_on_card_matches_cpu(hopper, material):
+    """elem_hyper_residual_tangent (torch.func on the card) against the
+    same call on the CPU, within 1e-12 relative."""
+    from feddlib_tpu_torch.fe.hyperelastic import elem_hyper_residual_tangent
+
+    params = {"StVK": (0.4, 0.6), "Neo-Hooke": (0.4, 0.6),
+              "Mooney-Rivlin": (0.1, 0.1, 0.8)}[material]
+    for fe in ("P1", "P2"):
+        dom = Domain.structured(3, 4, fe_type=fe, device="cpu")
+        # small enough that no element inverts (ln J of Neo-Hooke)
+        de = 0.002 * np.random.default_rng(5).standard_normal(
+            (dom.n_elements, dom.n_basis(), 3))
+        vc = dom.vert_coords()
+        R, K = elem_hyper_residual_tangent(vc, torch.as_tensor(de), 3, fe,
+                                           material, params)
+        Rg, Kg = elem_hyper_residual_tangent(
+            vc.to(hopper), torch.as_tensor(de, device=hopper), 3, fe,
+            material, params)
+        assert _rel(Rg.cpu(), R) < 1e-12 and _rel(Kg.cpu(), K) < 1e-12
+
+
+@pytest.mark.gpu
+def test_unsteady_hyperelastic_on_card_matches_cpu(hopper):
+    """Three BDF2 steps of NonLinElasticity (Neo-Hooke, f64 Jacobi-GMRES)
+    on the card against the CPU, within 1e-8 relative; on the card the
+    mixed-precision two-level path runs the same steps with B1-B3."""
+    from feddlib_tpu_torch.fe import ops
+    from feddlib_tpu_torch.la.block import BlockVector
+    from feddlib_tpu_torch.mesh.structured import flag_boxed_boundary
+    from feddlib_tpu_torch.problems import NonLinElasticity
+    from feddlib_tpu_torch.solvers.timestepping import (DAESolverInTime,
+                                                        TimeProblem)
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    def run(device, params):
+        dom = Domain.structured(3, 4, device=device)
+        flag_boxed_boundary(dom.mesh, [0.0] * 3, [1.0] * 3, {"x0": 2})
+        prob = NonLinElasticity(dom, parameter_list=ParameterList("P", {
+            "Material Model": "Neo-Hooke", **params}), device=device)
+        prob.assemble()
+        prob.add_bc(lambda x, t: [0.0, 0.0, 0.0], 2, 0)
+        f = ops.assemble_rhs(dom, lambda x: [0.0, 0.0, -0.05], 3)
+        drv = DAESolverInTime(TimeProblem(prob), 0.5, 1.5,
+                              rhs_func=lambda t: BlockVector([f * t]))
+        drv.advance_nonlinear_bdf(order=2)
+        return prob.solution[0].cpu()
+
+    f64 = {"Preconditioner Type": "Jacobi", "Maximum Iterations": 4000,
+           "Convergence Tolerance": 1e-10}
+    d_cpu, d_gpu = run("cpu", f64), run(hopper, f64)
+    assert _rel(d_gpu, d_cpu) < 1e-8
+    _cuda.reset_launch_counts()
+    d_mixed = run(hopper, {"Use Mixed Precision": True, "TwoLevel": True,
+                           "Null Space Type": "elasticity", "Clusters": 8,
+                           "Convergence Tolerance": 1e-10})
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        assert _cuda.launch_counts[k] > 0
+    assert _rel(d_mixed, d_cpu) < 1e-6
