@@ -78,7 +78,23 @@ exits non-zero):
      0/1 assembly plan (16 splits, f32), held against its plain version,
      the f64 assembly and a torch CSR yardstick; Q2 hex vector Laplace and
      P1-disc divergence on Domain.structured_hex(3, 24, "Q2"), card
-     against CPU.
+     against CPU;
+ 11. serial fluid-structure interaction on the two-box setup of
+     tests/test_fsi.py:24 (a lid-driven fluid box over a clamped elastic
+     slab; fluid P2/P1, solid P2, the interface flagged 9 on both meshes):
+     11a the 3D GE loop, (12, 12, 6) cells a box (51,664 dofs over u, p, d
+     and λ), 2 time steps of Newton with 'Use Mixed Precision',
+     'SchwarzOneLevel', 64 dof-map clusters and GMRES(1000); the level-1
+     shape printed from the host before the card allocates it; every
+     step's geometry GMRES, Newton and inner GMRES counts, host f64 relres
+     of its last solve (≤ 1e-8) and seconds by part; B1, B2 and B3 must
+     launch on the four-field system and are held against their plain
+     versions there;
+     11b a 2D GE step with FaCSI (the users' default preconditioner) on 64
+     cells a box, 32 subdomains, after the small case of tests/test_fsi.py
+     on the card against the CPU; 11c a 2D GI step (five fields, the shape
+     derivatives of fe/shape_derivatives.py) with the f64 one-level
+     Schwarz on 16 subdomains, the card's D_ug, D_pg against the CPU's.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -1082,6 +1098,380 @@ def _phase10(torch, np, args, dev, entry):
     _phase("10 element assembly", t0)
 
 
+IFACE = 9  # the interface flag of the two-box FSI setup
+
+
+def _fsi_two_box(torch, dim, n, params, device):
+    """The two-box FSI of tests/test_fsi.py:24: a fluid box above a solid
+    box of the unit square (cube), the interface x_{dim-1} = 0.5 flagged 9
+    on both meshes, each build_structured_mesh(dim, (n, .., ⌈n/2⌉ in 3D));
+    fluid P2/P1, solid P2, the lid u = 0.5 e_0 on the top and no-slip walls
+    on flag 1, the solid clamped on flag 1; Viscosity 0.1, E 50, ν 0.3,
+    dt 0.02.  Returns the assembled FSI problem."""
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.mesh.structured import build_structured_mesh
+    from feddlib_tpu_torch.problems.fsi import FSI
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    import numpy as np
+
+    cells = (n, n) if dim == 2 else (n, n, (n + 1) // 2)
+    lo_f, hi_s = [0.0] * dim, [1.0] * dim
+    lo_f[-1] = hi_s[-1] = 0.5
+    meshes = [build_structured_mesh(dim, cells, lower=lo_f,
+                                    upper=[1.0] * dim),
+              build_structured_mesh(dim, cells, lower=[0.0] * dim,
+                                    upper=hi_s)]
+    for mesh in meshes:
+        mesh.point_flags[np.isclose(mesh.points[:, -1], 0.5)] = IFACE
+        on = np.all(np.isclose(mesh.points[mesh.surfaces][:, :, -1], 0.5),
+                    axis=1)
+        mesh.surface_flags[on] = IFACE
+    dom_fp = Domain(meshes[0], device=device)
+    dom_d = Domain(meshes[1], device=device).p2_domain()
+    prob = FSI(dom_fp.p2_domain(), dom_fp, dom_d, [IFACE],
+               parameter_list=ParameterList("P", dict(
+                   {"Viscosity": 0.1, "E": 50.0, "Poisson Ratio": 0.3,
+                    "dt": 0.02, "MaxNonLinIts": 12}, **params)),
+               device=device)
+    prob.assemble()
+
+    def lid(x, t):
+        on = torch.isclose(x[dim - 1], torch.ones((), dtype=x.dtype,
+                                                  device=x.device))
+        return torch.stack([0.5 * on.double()] + [0.0 * x[0]] * (dim - 1))
+
+    prob.add_bc(lid, 1, 0)
+    prob.add_bc(lambda x, t: [0.0] * dim, 1, 2)
+    return prob
+
+
+def _level1_shape(np, A, cluster):
+    """(P, R, W) of the padded cluster blocks DenseBlockSpMV.from_csr(...,
+    balance=True) builds for this matrix and these clusters, computed on
+    the host before anything is allocated on the card."""
+    from feddlib_tpu_torch.la.dense_blocks import rebalance_row_clusters
+
+    sp = A.to_scipy().tocsr()
+    rc = rebalance_row_clusters(sp, cluster)
+    P = int(rc.max()) + 1
+    R = -(-int(np.bincount(rc, minlength=P).max()) // 8) * 8
+    coo = sp.tocoo()
+    off = rc[coo.row] != rc[coo.col]
+    key = np.unique(rc[coo.row[off]].astype(np.int64) * A.shape[0]
+                    + coo.col[off])
+    G = int(np.bincount(key // A.shape[0], minlength=P).max())
+    W = -(-(R + max(G, 1)) // 8) * 8
+    return P, R, W + (8 if W % 128 == 0 else 0)
+
+
+def _phase11(torch, np, args, dev, hold_b123):
+    """Serial FSI (see the module docstring): 11a the 3D GE loop on the
+    mixed-precision path (B1-B3 on the four-field system), 11b the 2D GE
+    step with FaCSI, 11c the 2D GI step with the shape derivatives."""
+    from feddlib_tpu_torch.fe import ops
+    from feddlib_tpu_torch.fe import shape_derivatives as sd
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.la.block import BlockMatrix
+    from feddlib_tpu_torch.la.dense_blocks import (DenseBlockSchwarz,
+                                                   DenseBlockSpMV)
+    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond import facsi
+    from feddlib_tpu_torch.solvers import refinement
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+
+    t0 = time.perf_counter()
+    # -- 11a: 3D two-box GE, mixed precision, 'SchwarzOneLevel' ------------
+    # GMRES(100) with 1,000 inner iterations a pass stalls on this
+    # saddle-point system (host relres 0.14 after 8 passes); GMRES(1000)
+    # with 3,000 reaches 1e-8 in two passes
+    prob = _fsi_two_box(torch, 3, args.n_fsi, {
+        "Use Mixed Precision": True, "Preconditioner Type": "SchwarzOneLevel",
+        "Clusters": args.fsi_clusters, "Convergence Tolerance": 1e-8,
+        "Num Blocks": 1000, "Maximum Iterations": 3000,
+        "relNonLinTol": 1e-6}, dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t0
+    sizes = prob.block_sizes()
+    # the level-1 shape on the host, before the card allocates it: the
+    # first Newton system's pattern (every later one is alike)
+    prob._build_system("Newton", torch.zeros_like(prob.solution[0]),
+                       1.0 / prob.dt,
+                       1.0 / (prob.newmark_beta * prob.dt ** 2))
+    A0 = prob.bc_system().merge()
+    dom0 = prob.domains[0]
+    dof_map = prob.preconditioner._merged_dof_map(
+        MeshPartition(dom0.parent_p1.mesh, args.fsi_clusters))
+    cluster = np.zeros(A0.shape[0], np.int32)
+    for p, ix in enumerate(dof_map.partition_indices):
+        cluster[ix] = p
+    P, R, W = _level1_shape(np, A0, cluster)
+    gb = {"blocks_and_inverse": 2 * 4 * P * R * W / 1e9,
+          "factor_square_blocks": 4 * P * W * W / 1e9}
+    print(f"fsi 3D: n={args.n_fsi} n_dofs={sum(sizes)} (u {sizes[0]}, p "
+          f"{sizes[1]}, d {sizes[2]}, lambda {sizes[3]}) nnz={A0.nnz} "
+          f"level-1 [P, R, W]=[{P}, {R}, {W}] f32 GB "
+          f"{ {k: round(v, 2) for k, v in gb.items()} }", flush=True)
+    _check(gb["factor_square_blocks"] <= 40.0,
+           f"fsi level-1 factor would take {gb['factor_square_blocks']:.1f}"
+           f" GB of square blocks (> 40 GB): lower --n-fsi")
+    del A0
+    prob.system = None
+
+    spent = {k: [] for k in ("geometry", "move_reassembly", "ale",
+                             "build_merge", "clusters", "sell", "factor",
+                             "with_data", "solve")}
+    builds, steps, last = [0], [], {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key].append(time.perf_counter() - t)
+            if key == "sell":
+                builds[0] += 1
+            return out
+        return run
+
+    merge = BlockMatrix.merge
+
+    def merge_and_keep(self):
+        out = merge(self)
+        last["A"] = out
+        return out
+
+    solve_system = prob.linear_solver.solve_system
+
+    def solve_and_keep(problem, b):
+        x, its = solve_system(problem, b)
+        last.update(b=b, x=x)
+        return x, its
+
+    newton_solve = NonLinearSolver.solve
+    # a time step's parts: from the end of the previous step (the
+    # geometry solve, mesh move and ALE operator come before its Newton)
+    mark = {}
+
+    def newton_and_record(self, problem, t=0.0):
+        t1 = time.perf_counter()
+        its = newton_solve(self, problem, t)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        st = {"t": t, "newton": its, "gmres": list(self.linear_iters),
+              "criterion": self.final_criterion, "newton_s": now - t1,
+              "seconds": now - mark["t"],
+              "geometry_its": problem.geometry.last_iters,
+              "geometry_relres": problem.geometry.last_relres,
+              **{k: sum(v[mark.get(k, 0):]) for k, v in spent.items()}}
+        mark.update({k: len(v) for k, v in spent.items()}, t=now)
+        # the host check is not in the step's seconds
+        st["host_relres"] = _host_relres(np, last["A"].to_scipy(),
+                                         last["b"].concat(),
+                                         last["x"].concat())
+        steps.append(st)
+        return its
+
+    patched = [(NonLinearSolver, "solve", newton_and_record),
+               (BlockMatrix, "merge", timed("build_merge", merge_and_keep)),
+               (ops, "assemble_ale_divergence",
+                timed("ale", ops.assemble_ale_divergence)),
+               (refinement, "iterative_refinement",
+                timed("solve", refinement.iterative_refinement)),
+               (DenseBlockSchwarz, "__init__",
+                timed("factor", DenseBlockSchwarz.__init__)),
+               (PaddedSplitSpMV, "__init__",
+                timed("sell", PaddedSplitSpMV.__init__)),
+               (PaddedSplitSpMV, "with_data",
+                timed("with_data", PaddedSplitSpMV.with_data))]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
+    for obj, name, fn in patched:
+        setattr(obj, name, fn)
+    from_csr = DenseBlockSpMV.from_csr  # bound to the class
+    DenseBlockSpMV.from_csr = classmethod(
+        lambda cls, *a, **k: timed("clusters", from_csr)(*a, **k))
+    saved.append((DenseBlockSpMV, "from_csr", classmethod(from_csr.__func__)))
+    prob.geometry.solve_motion = timed("geometry", prob.geometry.solve_motion)
+    prob._assemble_fluid_constant = timed("move_reassembly",
+                                          prob._assemble_fluid_constant)
+    prob._build_system = timed("build_merge", prob._build_system)
+    prob.linear_solver.solve_system = solve_and_keep
+    _cuda.reset_launch_counts()
+    t1 = time.perf_counter()
+    mark["t"] = t1
+    try:
+        prob.advance(t_end=0.04)
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t1
+    counts = dict(_cuda.launch_counts)
+    cache = prob._mixed_cache
+    db, split, prec = cache["db32"], cache["sell"], cache["prec"]
+    print(f"fsi 3D: P={db.P} R={db.R} G={db.G} W={db.R + db.G} "
+          f"E={split.Ac.E} K={split.Ac.K} (host estimate [{P}, {R}, {W}]) "
+          f"assembly_s={t_asm:.3f} ge_loop_s={t_loop:.3f} "
+          f"padded_operator_builds={builds[0]}", flush=True)
+    for i, st in enumerate(steps):
+        print(f"fsi 3D step {i + 1}: newton_its={st['newton']} "
+              f"gmres_per_newton_step={st['gmres']} criterion="
+              f"{st['criterion']:.3e} last_linear_host_f64_relres="
+              f"{st['host_relres']:.3e} geometry_gmres_its="
+              f"{st['geometry_its']} geometry_relres="
+              f"{st['geometry_relres']:.3e} step_s={st['seconds']:.3f} "
+              f"newton_s={st['newton_s']:.3f} (" + ", ".join(
+                  f"{k} {st[k]:.3f}" for k in spent) + ")", flush=True)
+    print(f"fsi 3D launches: {counts}", flush=True)
+    u, d = prob.solution[0], prob.solution[2]
+    _check(len(steps) == 2, f"fsi time steps {len(steps)}")
+    for st in steps:
+        _check(st["criterion"] <= 1e-6 and st["newton"] < 12,
+               f"fsi Newton did not converge: {st['criterion']}")
+        _check(st["host_relres"] <= 1e-8,
+               f"fsi last linear solve host relres {st['host_relres']}")
+    _check(u.dtype == torch.float64 and bool(torch.isfinite(u).all())
+           and bool(torch.isfinite(d).all()), "fsi finite f64 fields")
+    _check(float(d.abs().max()) > 0 and float(prob.solution[3].abs().max())
+           > 0, "fsi solid moves, traction transferred")
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        _check(counts[k] > 0, f"fsi launched no {k}")
+    hold_b123(" (fsi)", db, split, prec, counts)
+    del prob, cache, db, split, prec, u, d, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("11a fsi 3D mixed", t0)
+
+    # -- 11b: 2D two-box GE with FaCSI ---------------------------------------
+    t1 = time.perf_counter()
+    built = []
+    init = facsi.FaCSIPreconditioner.__init__
+
+    def init_and_record(self, *a, **k):
+        init(self, *a, **k)
+        built.append(dict(self.timings, S_solid=self.solid_prec.S,
+                          S_fluid=self.fluid_prec.S))
+
+    facsi.FaCSIPreconditioner.__init__ = init_and_record
+    try:
+        small = []  # the small reference case, on the card then the CPU
+        for d_ in (dev, "cpu"):
+            p = _fsi_two_box(torch, 2, 4, {
+                "Preconditioner Type": "FaCSI", "Subdomains": 4,
+                "Maximum Iterations": 8000, "Convergence Tolerance": 1e-9},
+                d_)
+            p.advance(t_end=0.04)
+            small.append((p.nonlinear_solver.linear_iters,
+                          p.solution.concat().cpu()))
+        built.clear()
+        prob = _fsi_two_box(torch, 2, args.n_fsi2d, {
+            "Preconditioner Type": "FaCSI", "Subdomains": 32,
+            "Convergence Tolerance": 1e-8}, dev)
+        t2 = time.perf_counter()
+        prob.advance(t_end=0.02)
+        torch.cuda.synchronize()
+        t_step = time.perf_counter() - t2
+    finally:
+        facsi.FaCSIPreconditioner.__init__ = init
+    (its_card, x_card), (its_cpu, x_cpu) = small
+    dsmall = float((x_card - x_cpu).abs().max() / x_cpu.abs().max())
+    print(f"fsi 2D FaCSI small (n=4, 2 steps) card vs cpu: gmres "
+          f"{its_card} vs {its_cpu} (JAX package: [21, 21, 21, 21]) "
+          f"rel={dsmall:.3e}")
+    _check(its_card == its_cpu and dsmall <= 1e-8
+           and all(abs(i - 21) <= 2 for i in its_card),
+           "small FaCSI case card vs CPU")
+    solver = prob.nonlinear_solver
+    sizes = prob.block_sizes()
+    pre = prob.preconditioner.prec
+    r = torch.randn(sum(sizes), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    apply_ms = _device_ms(torch, lambda: pre.apply(r), samples=5, calls=5)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(10):
+        pre.apply(r)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - tw) * 100.0
+    voi = prob.values_of_interest(tip_point=(0.5, 0.5), force_flags=(1,))
+    print(f"fsi 2D FaCSI: n={args.n_fsi2d} n_dofs={sum(sizes)} (u "
+          f"{sizes[0]}, p {sizes[1]}, d {sizes[2]}, lambda {sizes[3]}) "
+          f"newton_its={len(solver.linear_iters)} gmres_per_newton_step="
+          f"{solver.linear_iters} criterion={solver.final_criterion:.3e} "
+          f"last_relres={prob.last_relres:.3e} step_s={t_step:.3f}")
+    for i, b in enumerate(built):
+        print(f"fsi 2D FaCSI build {i + 1}: S solid {b['S_solid']}, fluid "
+              f"{b['S_fluid']}; seconds solid {b['solid']:.3f}, fluid "
+              f"{b['fluid']:.3f}")
+    print(f"fsi 2D FaCSI apply: {apply_ms:.3f} ms (device) {wall_ms:.3f} ms "
+          f"(wall); values_of_interest {voi}", flush=True)
+    _check(solver.final_criterion <= 1e-6 and prob.last_relres <= 1e-8,
+           "fsi 2D FaCSI Newton / GMRES")
+    _check(all(b["S_solid"] < 4096 and b["S_fluid"] < 4096 for b in built),
+           "FaCSI subdomains take dense f64 inverses (S < 4096)")
+    _check(all(np.isfinite(v) for v in voi.values()), "finite observables")
+    del prob, pre, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("11b fsi 2D FaCSI", t1)
+
+    # -- 11c: 2D GI with the shape derivatives on the card --------------------
+    t1 = time.perf_counter()
+    prob = _fsi_two_box(torch, 2, args.n_fsi_gi, {
+        "Preconditioner Type": "SchwarzOneLevel", "Subdomains": 16}, dev)
+    prob.advance_gi(t_end=0.02)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t1
+    solver = prob.nonlinear_solver
+    sizes = prob.block_sizes()
+    dom_u, dom_p = prob.variables[0][0], prob.variables[1][0]
+    u, p, _, _, g = prob.solution.blocks
+    gp = torch.zeros_like(g)
+    uo = 0.5 * u
+    args_sd = (prob.viscosity, prob.density_f, prob.dt, 1.0 / prob.dt)
+    Dug, Dpg = sd.assemble_shape_derivative_blocks(
+        dom_u, dom_p, u, p, g, gp, uo, *args_sd)
+    cu = Domain(dom_u.mesh, device="cpu")
+    cp = Domain(dom_p.mesh, device="cpu")
+    Duc, Dpc = sd.assemble_shape_derivative_blocks(
+        cu, cp, u.cpu(), p.cpu(), g.cpu(), gp.cpu(), uo.cpu(), *args_sd)
+    err = max(float((Dug.data.cpu() - Duc.data).abs().max()
+                    / Duc.data.abs().max()),
+              float((Dpg.data.cpu() - Dpc.data).abs().max()
+                    / Dpc.data.abs().max()))
+    # one shape-derivative chunk: device ms and peak bytes
+    E = min(sd._CHUNK, dom_u.n_elements)
+    conn_u = torch.as_tensor(dom_u.elem_nodes()[:E], device=dev)
+    ref = torch.as_tensor(dom_u.mesh.ref_points[
+        dom_u.mesh.elements[:E, :3]], dtype=torch.float64, device=dev)
+    fe = [v.reshape(-1, 2)[conn_u] for v in (u, g, gp, uo)]
+    pe = p[torch.as_tensor(dom_p.elem_nodes()[:E], device=dev)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    chunk_ms = _device_ms(torch, lambda: sd.elem_shape_derivative(
+        fe[0], pe, fe[1], fe[2], ref, fe[3], 2, "P2", "P1", *args_sd),
+        samples=5, calls=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"fsi 2D GI: n={args.n_fsi_gi} n_dofs={sum(sizes)} {sizes} "
+          f"newton_its={len(solver.linear_iters)} gmres_per_newton_step="
+          f"{solver.linear_iters} criterion={solver.final_criterion:.3e} "
+          f"last_relres={prob.last_relres:.3e} step_s={t_step:.3f}")
+    print(f"fsi 2D GI shape derivatives: D_ug nnz={Dug.nnz} D_pg nnz="
+          f"{Dpg.nnz} card_vs_cpu_rel={err:.3e}; one chunk of {E} elements "
+          f"{chunk_ms:.3f} ms (device) peak_bytes={peak}", flush=True)
+    _check(len(sizes) == 5 and solver.final_criterion <= 1e-6
+           and prob.last_relres <= 1e-8, "fsi 2D GI Newton / GMRES")
+    _check(err <= 1e-12, f"shape-derivative blocks card vs CPU {err}")
+    _check(bool(torch.isfinite(prob.solution.concat()).all()),
+           "finite GI solution")
+    _phase("11c fsi 2D GI", t1)
+    _phase("11 fsi", t0)
+
+
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=64,
@@ -1115,6 +1505,17 @@ def _parser():
                     help="cells per side of the P2 assembly cube")
     ap.add_argument("--n-hex", type=int, default=24,
                     help="cells per side of the Q2 hex cube")
+    # the FSI's dof-map clusters are rebalanced as the cavity's are: at 16
+    # cells a side and 64 clusters the level-1 factor's square f32 blocks
+    # [64, W, W] would take 59 GB (W = 15,220, the host estimate phase 11
+    # prints), beyond the 40 GB the phase allows itself; at 12, 17.5 GB
+    ap.add_argument("--n-fsi", type=int, default=12,
+                    help="cells per side of each 3D FSI box (n, n, n/2)")
+    ap.add_argument("--fsi-clusters", type=int, default=64)
+    ap.add_argument("--n-fsi2d", type=int, default=64,
+                    help="cells per side of each 2D FSI box (FaCSI)")
+    ap.add_argument("--n-fsi-gi", type=int, default=32,
+                    help="cells per side of each 2D FSI box (GI)")
     return ap
 
 
@@ -1714,6 +2115,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     _phase10(torch, np, args, dev, entry)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase11(torch, np, args, dev, hold_b123)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -164,6 +164,21 @@ def elem_advection(vert_coords, u_elem, dim, fe_type):
     return N * adet[:, None, None]
 
 
+def elem_ale_divergence(vert_coords, w_elem, dim, fe_type):
+    """ALE additional convection ∫ (∇·w) φa φb with w the discrete mesh
+    velocity on the same space; the caller expands it to the identity over
+    velocity components and scales it by −density, as FSI does.
+    w_elem [E, nb, dim] nodal mesh-velocity values; returns [E, nb, nb]."""
+    _, qw, phi, dphi = _tables(dim, fe_type,
+                               ref.determine_degree(dim, fe_type, "conv"),
+                               vert_coords.device)
+    Binv, adet = element_transforms(vert_coords, dim)
+    g = _phys_grads(Binv, dphi)  # [E,nq,nb,dim]
+    div_w = torch.einsum("ebd,eqbd->eq", w_elem, g)  # Σ_b w_b·∇φb
+    D = torch.einsum("q,eq,qa,qb->eab", qw, div_w, phi, phi)
+    return D * adet[:, None, None]
+
+
 def elem_advection_in_u(vert_coords, u_elem, dim, fe_type):
     """Newton linearisation W(u): ∫ φa φb ∂u_i/∂x_j — the (∇u)·δu term, a
     dim×dim block per (a, b).  Returns [E, nb, nb, dim, dim]."""

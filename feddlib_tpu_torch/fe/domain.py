@@ -135,6 +135,13 @@ class Domain:
                 nv * self.dim, -1).contiguous()      # [nv*dim, E]
         return self._vert_coords_T
 
+    def invalidate_geometry(self) -> None:
+        """Call after mesh motion (ALE): drops the coordinate caches, both
+        layouts, so the next assembly gathers the moved points.  The
+        symbolic patterns depend on the connectivity alone and stay."""
+        self._vert_coords = None
+        self._vert_coords_T = None
+
     def elem_nodes(self) -> np.ndarray:
         return self.mesh.elements
 

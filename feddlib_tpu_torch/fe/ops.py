@@ -2,13 +2,14 @@
 
 Counterpart of feddlib_tpu/fe/ops.py: simplex Laplace (scalar and vector),
 mass, stress, linear elasticity, the Navier–Stokes convection and Newton
-blocks, the mixed divergence pair, the Bochev–Dohrmann stabilization and
-the volume and surface loads; the quad/hex Laplace, mass and load and the
-Q2/P1-disc operators (fe/hex.py).  Each runs the chunked element path
-(ops.py:48-91 of the JAX package) — except where the JAX package switches
-to its element-last fast assembly (fe/fast_assembly.py) on an
-accelerator: scalar P1/P2 Laplace and mass and the two advection
-operators, which take it for a CUDA domain (`fast_assembly.use_fast`).
+blocks, the FSI ALE divergence, the mixed divergence pair, the
+Bochev–Dohrmann stabilization and the volume and surface loads; the
+quad/hex Laplace, mass and load and the Q2/P1-disc operators (fe/hex.py).
+Each runs the chunked element path (ops.py:48-91 of the JAX package) —
+except where the JAX package switches to its element-last fast assembly
+(fe/fast_assembly.py) on an accelerator: scalar P1/P2 Laplace and mass and
+the two advection operators, which take it for a CUDA domain
+(`fast_assembly.use_fast`).
 """
 
 from __future__ import annotations
@@ -158,6 +159,19 @@ def assemble_advection(domain: Domain, u: torch.Tensor) -> CsrMatrix:
         lambda vc, uc: asm.elem_advection(vc, uc, domain.dim,
                                           domain.fe_type),
         u_elem_values(domain, u), post=_vector_identity(domain))
+
+
+def assemble_ale_divergence(domain: Domain, w: torch.Tensor) -> CsrMatrix:
+    """ALE additional convection ∫ (∇·w) u·v with w the discrete mesh
+    velocity (FE::assemblyAdditionalConvection), on the chunked path as in
+    the JAX package (which has no fast kernel for it).  The caller scales
+    by −density, as FSI does."""
+    _require_simplex(domain)
+    return _assemble_chunked(
+        domain, _square_pattern(domain, domain.dim),
+        lambda vc, wc: asm.elem_ale_divergence(vc, wc, domain.dim,
+                                               domain.fe_type),
+        u_elem_values(domain, w), post=_vector_identity(domain))
 
 
 def assemble_advection_in_u(domain: Domain, u: torch.Tensor) -> CsrMatrix:

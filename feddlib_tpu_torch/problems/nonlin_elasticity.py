@@ -20,6 +20,37 @@ from feddlib_tpu_torch.problems.base import NonLinearProblem
 _HYPER_CHUNK = 16384
 
 
+def hyper_elem_residual_tangent(dom: Domain, d: torch.Tensor, material,
+                                params):
+    """Element internal forces and tangents of a hyperelastic solid at the
+    NodeWise displacement d, flattened ([E·nloc], [E·nloc²]), evaluated
+    in chunks of _HYPER_CHUNK elements."""
+    vc = dom.vert_coords()
+    de = d.reshape(dom.n_nodes, dom.dim)[
+        torch.as_tensor(dom.elem_nodes(), device=d.device)]
+    Rs, Ks = [], []
+    for s in range(0, vc.shape[0], _HYPER_CHUNK):
+        R, K = elem_hyper_residual_tangent(
+            vc[s:s + _HYPER_CHUNK], de[s:s + _HYPER_CHUNK], dom.dim,
+            dom.fe_type, material, params)
+        Rs.append(R.reshape(-1))
+        Ks.append(K.reshape(-1))
+    return torch.cat(Rs), torch.cat(Ks)
+
+
+def assemble_hyper(dom: Domain, d: torch.Tensor, material, params):
+    """(F, K): the global internal forces and the consistent tangent
+    (CsrMatrix on the domain's square vector pattern) at d."""
+    dim = dom.dim
+    n = dom.n_dofs(dim)
+    Rf, Kf = hyper_elem_residual_tangent(dom, d, material, params)
+    pat = dom.pattern(("square", dim), lambda: asm.scatter_pattern(
+        dom.elem_dofs(dim), dom.elem_dofs(dim), n, n))
+    K = CsrMatrix(pat, device=dom.device)
+    K.assemble(Kf)
+    return asm.assemble_vector(dom.elem_dofs(dim), Rf, n), K
+
+
 class NonLinElasticity(NonLinearProblem):
     def __init__(self, domain: Domain, parameter_list=None, device="cuda"):
         super().__init__(parameter_list, device=device)
@@ -38,23 +69,10 @@ class NonLinElasticity(NonLinearProblem):
             self.params = (mu, lam)
         self.source = None
 
-    def _d_elem(self):
-        dom = self.variables[0][0]
-        d = self.solution[0].reshape(dom.n_nodes, dom.dim)
-        return d[torch.as_tensor(dom.elem_nodes(), device=d.device)]
-
     def _residual_tangent(self):
-        dom = self.variables[0][0]
-        vc = dom.vert_coords()
-        de = self._d_elem()
-        Rs, Ks = [], []
-        for s in range(0, vc.shape[0], _HYPER_CHUNK):
-            R, K = elem_hyper_residual_tangent(
-                vc[s:s + _HYPER_CHUNK], de[s:s + _HYPER_CHUNK],
-                dom.dim, dom.fe_type, self.material, self.params)
-            Rs.append(R.reshape(-1))
-            Ks.append(K.reshape(-1))
-        return torch.cat(Rs), torch.cat(Ks)
+        return hyper_elem_residual_tangent(self.variables[0][0],
+                                           self.solution[0], self.material,
+                                           self.params)
 
     def assemble(self) -> None:
         self.init_vectors()

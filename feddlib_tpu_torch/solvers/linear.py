@@ -14,8 +14,8 @@ Precision'): an f64 iterative refinement around an f32 restarted GMRES that
 runs in the padded cluster space, with the padded SELL operator
 (`PaddedSplitSpMV`) as A and the restricted dense-block Schwarz —
 optionally with the padded GDSW coarse level (`'TwoLevel': True`) — as M.
-'FaCSI' and the distributed solve raise NotImplementedError and name their
-ROADMAP.md item.
+'FaCSI' (precond/facsi.py) preconditions the four-field FSI system.  The
+distributed solve raises NotImplementedError and names its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -72,9 +72,16 @@ class Preconditioner:
             self._built = True
             return
         if prec_type == "FaCSI":
-            raise NotImplementedError(
-                "'Preconditioner Type': 'FaCSI' is not ported yet "
-                "(ROADMAP.md A9, precond/facsi.py)")
+            from feddlib_tpu_torch.precond.facsi import FaCSIPreconditioner
+
+            prec = FaCSIPreconditioner(
+                self.problem, self.problem.bc_system(),
+                n_subdomains=int(params.get("Subdomains", 4)),
+                overlap=int(params.get("Overlap", 1)))
+            self.prec = prec
+            self._op = prec.operator()
+            self._built = True
+            return
         # the Schwarz variants need the mesh partition of the first domain
         # — of its P1 parent when the leading space is P2, so all blocks
         # (e.g. u-P2 / p-P1) share one element partition

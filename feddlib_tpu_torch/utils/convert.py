@@ -186,3 +186,28 @@ def newton_state_from_numpy(problem, u, p) -> None:
     """Set a velocity–pressure problem's iterate (u, p) — a JAX problem's
     solution blocks — so a Newton step starts from it."""
     problem.solution = block_vector_from_numpy([u, p], problem.device)
+
+
+def fsi_state_from_numpy(problem, blocks, solid_v, solid_a, g_prev, points,
+                         ref_points) -> None:
+    """Carry an FSI state — a JAX FSI problem's solution blocks (four for
+    GE, five for GI), Newmark velocity and acceleration, previous mesh
+    displacement [n_nodes, dim] and the fluid mesh's current and reference
+    points — into the port's (assembled) FSI problem, so that its next
+    time step starts from it."""
+    dev = problem.device
+    if len(blocks) == 5:
+        problem._gi = True
+    problem.solution = block_vector_from_numpy(blocks, dev)
+    problem.rhs = BlockVector([torch.zeros_like(b)
+                               for b in problem.solution.blocks])
+    problem.solid_v = _dev(solid_v, dev, torch.float64)
+    problem.solid_a = _dev(solid_a, dev, torch.float64)
+    problem.u_prev = problem.solution[0]
+    problem.g_prev = np.array(g_prev, dtype=np.float64, copy=True)
+    dom_u = problem.variables[0][0]
+    dom_u.mesh.ref_points = np.array(ref_points, dtype=np.float64, copy=True)
+    dom_u.mesh.points = np.array(points, dtype=np.float64, copy=True)
+    dom_u.invalidate_geometry()
+    if getattr(problem, "Af", None) is not None:
+        problem._assemble_fluid_constant()

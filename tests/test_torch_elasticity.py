@@ -272,7 +272,8 @@ def test_linelas_f64_branch_variants(prec_type, method):
 def test_schwarz_types_still_raise():
     """The Schwarz types are ported: 'SchwarzTwoLevel' with the elasticity
     null space solves LinElas to 1e-8 in the JAX package's iteration
-    count.  'FaCSI' still raises and names ROADMAP.md A9."""
+    count.  'FaCSI' (ported with the FSI slice) acts on the four GE fields
+    of an FSI problem only, and says so on a one-field problem."""
     params = {"Preconditioner Type": "SchwarzTwoLevel", "Subdomains": 4,
               "Null Space Type": "Elasticity"}
     pj = _linelas(JDomain, JLinElas, JPL, (2, 6), params,
@@ -285,7 +286,7 @@ def test_schwarz_types_still_raise():
                   - np.asarray(pj.solution[0])).max() < 1e-7
     pt.parameter_list["Preconditioner Type"] = "FaCSI"
     pt._prec_stale = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+    with pytest.raises(ValueError, match="four GE fields"):
         pt.solve()
 
 

@@ -800,3 +800,102 @@ def test_unsteady_hyperelastic_on_card_matches_cpu(hopper):
     for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
         assert _cuda.launch_counts[k] > 0
     assert _rel(d_mixed, d_cpu) < 1e-6
+
+
+def _fsi_two_box(device, n, params):
+    """The 2D two-box FSI of tests/test_fsi.py:24 (lid-driven fluid over a
+    clamped elastic slab, the interface y = 0.5 flagged 9)."""
+    from feddlib_tpu_torch.mesh.structured import build_structured_mesh
+    from feddlib_tpu_torch.problems import FSI
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    meshes = [build_structured_mesh(2, (n, n), lower=[0, 0.5], upper=[1, 1]),
+              build_structured_mesh(2, (n, n), lower=[0, 0], upper=[1, 0.5])]
+    for mesh in meshes:
+        mesh.point_flags[np.isclose(mesh.points[:, 1], 0.5)] = 9
+        on = np.all(np.isclose(mesh.points[mesh.surfaces][:, :, 1], 0.5),
+                    axis=1)
+        mesh.surface_flags[on] = 9
+    dom_fp = Domain(meshes[0], device=device)
+    prob = FSI(dom_fp.p2_domain(), dom_fp,
+               Domain(meshes[1], device=device).p2_domain(), [9],
+               parameter_list=ParameterList("P", {
+                   "Viscosity": 0.1, "E": 50.0, "Poisson Ratio": 0.3,
+                   "dt": 0.02, "MaxNonLinIts": 12, **params}),
+               device=device)
+    prob.assemble()
+
+    def lid(x, t):
+        on = torch.isclose(x[1], torch.ones((), dtype=x.dtype,
+                                            device=x.device))
+        return torch.stack([0.5 * on.double(), 0.0 * x[0]])
+
+    prob.add_bc(lid, 1, 0)
+    prob.add_bc(lambda x, t: [0.0, 0.0], 1, 2)
+    return prob
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,fe", [(2, "P2"), (3, "P1"), (3, "P2")])
+def test_ale_divergence_on_card_matches_cpu(hopper, dim, fe):
+    """The ALE divergence operator assembled on the card against the CPU,
+    within 1e-13 of max |data|."""
+    from feddlib_tpu_torch.fe import ops
+
+    dom_c = Domain.structured(dim, 3, fe_type=fe, device="cpu")
+    dom_g = Domain.structured(dim, 3, fe_type=fe, device=hopper)
+    w = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        dom_c.n_dofs(dim)))
+    D_c = ops.assemble_ale_divergence(dom_c, w)
+    D_g = ops.assemble_ale_divergence(dom_g, w.to(hopper))
+    assert np.array_equal(D_c.pattern.indices, D_g.pattern.indices)
+    assert _rel(D_g.data.cpu(), D_c.data) < 1e-13
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [2, 3])
+def test_shape_derivative_blocks_on_card_match_cpu(hopper, dim):
+    """D_ug, D_pg (torch.func.jacfwd inside vmap) on the card against the
+    CPU, within 1e-12 of max |data|."""
+    from feddlib_tpu_torch.fe.shape_derivatives import \
+        assemble_shape_derivative_blocks
+
+    out = []
+    for device in ("cpu", hopper):
+        dom_p = Domain.structured(dim, 3, device=device)
+        dom_u = dom_p.p2_domain()
+        rng = np.random.default_rng(8)
+        n_u = dom_u.n_dofs(dim)
+        out.append(assemble_shape_derivative_blocks(
+            dom_u, dom_p, 0.1 * rng.standard_normal(n_u),
+            rng.standard_normal(dom_p.n_nodes),
+            0.01 * rng.standard_normal(n_u), 0.01 * rng.standard_normal(n_u),
+            0.1 * rng.standard_normal(n_u), 0.7, 1.3, 0.05, 20.0))
+    for a, b in zip(out[0], out[1]):
+        assert _rel(b.data.cpu(), a.data) < 1e-12
+
+
+@pytest.mark.gpu
+def test_fsi_ge_step_on_card_matches_cpu(hopper):
+    """One GE step of the 2D two-box FSI with FaCSI on the card against
+    the CPU (equal GMRES counts, solution within 1e-8 relative); with mixed
+    precision the four-field system runs B1-B3 on the card and reaches the
+    same solution within 1e-6."""
+    facsi = {"Preconditioner Type": "FaCSI", "Subdomains": 4,
+             "Maximum Iterations": 8000, "Convergence Tolerance": 1e-9}
+    runs = []
+    for device in ("cpu", hopper):
+        prob = _fsi_two_box(device, 4, facsi)
+        prob.advance(t_end=0.02)
+        runs.append((prob.nonlinear_solver.linear_iters,
+                     prob.solution.concat().cpu()))
+    assert runs[0][0] == runs[1][0]
+    assert _rel(runs[1][1], runs[0][1]) < 1e-8
+    _cuda.reset_launch_counts()
+    prob = _fsi_two_box(hopper, 4, {
+        "Use Mixed Precision": True, "Preconditioner Type": "SchwarzOneLevel",
+        "Clusters": 4, "Convergence Tolerance": 1e-9})
+    prob.advance(t_end=0.02)
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        assert _cuda.launch_counts[k] > 0
+    assert _rel(prob.solution.concat().cpu(), runs[0][1]) < 1e-6

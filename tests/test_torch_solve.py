@@ -161,13 +161,15 @@ def test_entry_points_default_to_cuda():
 
 def test_unported_paths_raise():
     """What is still unported raises and names its ROADMAP.md item: the
-    'FaCSI' preconditioner (A9) and the distributed solve (A10).  (Before
-    the Schwarz types were ported, the default preconditioner raised
-    here; test_default_solve_converges holds it now.)"""
+    distributed solve (A10).  (Before the Schwarz types and FaCSI were
+    ported, the default preconditioner and 'FaCSI' raised here;
+    test_default_solve_converges and tests/test_torch_fsi.py hold them
+    now.  FaCSI acts on the four GE fields of an FSI problem only, and
+    says so on a one-field problem.)"""
     pt = _laplace(TDomain, TLaplace, TPL, 3, 2, False, device="cpu")
     pt.parameter_list["Use Mixed Precision"] = False
     pt.parameter_list["Preconditioner Type"] = "FaCSI"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+    with pytest.raises(ValueError, match="four GE fields"):
         pt.solve()
     pt.parameter_list["Use Distributed Solve"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
