@@ -94,7 +94,22 @@ exits non-zero):
      cells a box, 32 subdomains, after the small case of tests/test_fsi.py
      on the card against the CPU; 11c a 2D GI step (five fields, the shape
      derivatives of fe/shape_derivatives.py) with the f64 one-level
-     Schwarz on 16 subdomains, the card's D_ug, D_pg against the CPU's.
+     Schwarz on 16 subdomains, the card's D_ug, D_pg against the CPU's;
+ 12. the distributed solve, its shards stacked on the card: 12a phase 7's
+     system (Domain.structured(3, 64)) through Problem.solve with 'Use
+     Distributed Solve' over 512 shards ('Devices'; --n-dist,
+     --dist-devices) and 'SchwarzTwoLevel' (distributed GDSW, overlap 1,
+     Restricted, dense coarse), f64 GMRES to 1e-8: the host estimate of
+     level 1 first, the setup seconds by part, the halo rounds, the shapes
+     and bytes on the card, the host f64 residual, the count against phase
+     7's (±1) and x against phase 7's solution (1e-6 of max|x|), a second
+     solve bitwise equal from the cached shards, one A and one M(A(x))
+     apply (device and wall ms, launches from a profiler trace); 12b
+     Domain.structured(2, 16) on 8 shards under Jacobi, one-level Schwarz
+     (overlap 2, Averaging) and two-level GDSW, and a P2/P1 Stokes cavity
+     on 4 shards through the block GDSW, each on the card against the CPU
+     (equal counts, x within 1e-9 of max|x|).  Phase 12 launches no Hopper
+     kernel: the JAX package computes all of it in XLA.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -367,6 +382,9 @@ def _phase7(torch, np, args, dev):
           f"{prec.timings['gdsw_s']:.3f} GDSW) launches="
           f"{dict(_cuda.launch_counts)}", flush=True)
     _check(rel <= 1e-8, f"f64 default path host residual {rel} > 1e-8")
+    # phase 12 holds the distributed solve of this system against it
+    ref = {"x": u.cpu().numpy(), "iters": iters, "relres": rel,
+           "n": args.n_schwarz, "parts": args.schwarz_parts}
 
     # one M(A(x)) apply of the solve's operators, and its two levels
     A_fn, A_ops = (LinearSolver()._auto_format_operator(
@@ -459,6 +477,7 @@ def _phase7(torch, np, args, dev):
            and small["cuda"][0] == small["cpu"][0] and dsmall < 1e-10,
            "small default solve cuda vs cpu")
     _phase("7 f64 default path", t0)
+    return ref
 
 
 def _cavity(torch, n, params, device):
@@ -1472,6 +1491,254 @@ def _phase11(torch, np, args, dev, hold_b123):
     _phase("11 fsi", t0)
 
 
+def _stacked_bytes(torch, *objs):
+    """Device bytes of the tensors in `objs` (nested lists / tuples), each
+    storage counted once (an expanded view is its one copy)."""
+    seen, total = set(), 0
+
+    def walk(o):
+        nonlocal total
+        if isinstance(o, (list, tuple)):
+            for a in o:
+                walk(a)
+        elif torch.is_tensor(o):
+            st = o.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+
+    for o in objs:
+        walk(o)
+    return total
+
+
+def _launches(torch, fn):
+    """Kernel launches (and copies) on the card of one call of fn, read
+    from a torch.profiler trace; None where the trace shows no device
+    events (the profiler cannot see the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:  # no CUPTI on this machine
+        print(f"profiler unavailable: {e}")
+        return None
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def _phase12(torch, np, args, dev, ref7):
+    """The distributed solve, shards stacked on the card (see the module
+    docstring)."""
+    import scipy.sparse as sps
+
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond.schwarz import grow_overlap
+
+    t0 = time.perf_counter()
+    n_dev = args.dist_devices
+    params = {"Use Distributed Solve": True, "Devices": n_dev,
+              "Preconditioner Type": "SchwarzTwoLevel",
+              "Convergence Tolerance": 1e-8}
+    prob = _default_laplace(torch, args.n_dist, params, dev)
+    A = prob.bc_system().get_block(0, 0)
+    A_sp = A.to_scipy()
+    # the host estimate of level 1 before the card holds any of it: the
+    # overlap-1 sets of the partition the solve will take
+    part = MeshPartition(prob.domains[0].mesh, n_dev)
+    S_est = max(len(grow_overlap(A_sp, ix, 1))
+                for ix in part.unique_map.partition_indices)
+    print(f"distributed: n_dofs={A.shape[0]} shards={n_dev} level-1 "
+          f"estimate [{n_dev}, {S_est}, {S_est}] f64 = "
+          f"{n_dev * S_est * S_est * 8} bytes (host)", flush=True)
+    del part
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t1 = time.perf_counter()
+    iters = prob.solve()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    x = prob.solution[0].clone()
+    u = x.cpu().numpy()
+    rel = _host_relres(np, A_sp, prob.rhs[0], x)
+    cache = prob._dist_cache
+    dmat, solver = cache["dmat"], cache["solver"]
+    build, arrs = cache["precond"]
+    tm, dt, sh = build.timings, dmat.timings, build.shape
+    setup_s = sum(cache["timings"].values())
+    _check(x.device.type == "cuda" and dmat.ell_data.device.type == "cuda"
+           and arrs[0].device.type == "cuda", "distributed solve on the card")
+    print(f"distributed setup s: partition={cache['timings']['partition_s']:.3f}"
+          f" DistributedCsr={cache['timings']['dmat_s']:.3f} (rows "
+          f"{dt['rows_s']:.3f}, HaloPlan {dt['plan_s']:.3f}, ELL "
+          f"{dt['ell_s']:.3f}) overlap_sets={tm['overlap_s']:.3f} "
+          f"overlap_HaloPlan={tm['ovplan_s']:.3f} "
+          f"blocks={tm['blocks_s']:.3f} inverses={tm['factor_s']:.3f} "
+          f"GDSW={tm['gdsw_s']:.3f} Phi={tm['phi_s']:.3f} "
+          f"coarse_inverse={tm['coarse_s']:.3f} total={setup_s:.3f}",
+          flush=True)
+    cs, co = dmat.plan.comm_stats(), sh["comm"]
+    l1_bytes = _stacked_bytes(torch, arrs[0])
+    all_bytes = _stacked_bytes(torch, arrs, dmat.ell_data, dmat.ell_cols,
+                               dmat.plan.import_arrays,
+                               dmat.plan.export_arrays)
+    print(f"distributed shapes: level1 [{n_dev}, {sh['S']}, {sh['S']}] "
+          f"N_o={dmat.plan.N_o} G={dmat.plan.G} K={dmat.K} "
+          f"G_ov={sh['G_ov']} C_loc={sh['C_loc']} nc={sh['nc']} "
+          f"level1_bytes={l1_bytes} operator_and_prec_bytes={all_bytes} "
+          f"allocated_after_setup={torch.cuda.memory_allocated() - m0} "
+          f"peak_in_solve={torch.cuda.max_memory_allocated() - m0}; "
+          f"SpMV halo {cs['rounds']} rounds / {cs['ppermute_elems']} "
+          f"ppermute elems (all_gather {cs['allgather_elems']}), overlap "
+          f"halo {co['rounds']} rounds / {co['ppermute_elems']} elems",
+          flush=True)
+    _check(sh["S"] == S_est, "level-1 width equals the host estimate")
+    print(f"distributed solve: gmres_iters={iters} relres="
+          f"{prob.last_relres:.3e} host_f64_relres={rel:.3e} "
+          f"first_solve_s={t_first:.3f} (setup {setup_s:.3f} inside, "
+          f"GMRES {t_first - setup_s:.3f}) "
+          f"phase7_iters={ref7['iters']} phase7_host_relres="
+          f"{ref7['relres']:.3e} hopper_launches="
+          f"{dict(_cuda.launch_counts)}", flush=True)
+    _check(rel <= 1e-8, f"distributed host residual {rel} > 1e-8")
+    same_system = (args.n_dist == ref7["n"]
+                   and n_dev == ref7["parts"])
+    if same_system:
+        dx = float(np.abs(u - ref7["x"]).max())
+        print(f"distributed vs phase 7: max|x_dist - x_serial|={dx:.3e} "
+              f"max|x|={np.abs(u).max():.3e}")
+        _check(abs(iters - ref7["iters"]) <= 1,
+               f"distributed {iters} vs serial {ref7['iters']} iterations")
+        _check(dx <= 1e-6 * float(np.abs(u).max()),
+               "distributed solution against phase 7's")
+    else:
+        # only a caller's flags may part the two systems, never the defaults
+        ap = _parser()
+        _check(any(getattr(args, k) != ap.get_default(k) for k in
+                   ("n_dist", "dist_devices", "n_schwarz", "schwarz_parts")),
+               "the default phase 12a system differs from phase 7's")
+        print(f"distributed vs phase 7: comparison skipped: --n-dist "
+              f"{args.n_dist} / --dist-devices {n_dev} differ from phase "
+              f"7's --n-schwarz {ref7['n']} / --schwarz-parts "
+              f"{ref7['parts']}", flush=True)
+
+    # a second solve reuses the cached shards and preconditioner
+    t2 = time.perf_counter()
+    iters2 = prob.solve()
+    torch.cuda.synchronize()
+    t_second = time.perf_counter() - t2
+    _check(prob._dist_cache is cache and iters2 == iters
+           and torch.equal(prob.solution[0], x),
+           "second distributed solve: cached and bitwise equal")
+    print(f"distributed second solve: {t_second:.3f} s, bitwise equal, "
+          f"cache reused", flush=True)
+
+    # one A apply and one M(A(x)) of the solve, device and wall ms
+    A_fn, M_fn = solver.operators(cache["precond"])
+    xs = torch.randn(n_dev, dmat.plan.N_o, dtype=torch.float64, device=dev)
+    xs = xs * dmat.plan.owned_mask
+    a_ms = _device_ms(torch, lambda: A_fn(xs), samples=10, calls=5)
+    ma_ms = _device_ms(torch, lambda: M_fn(A_fn(xs)), samples=10, calls=5)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(10):
+        M_fn(A_fn(xs))
+    torch.cuda.synchronize()
+    ma_wall = (time.perf_counter() - tw) / 10 * 1e3
+    tw = time.perf_counter()
+    for _ in range(10):
+        A_fn(xs)
+    torch.cuda.synchronize()
+    a_wall = (time.perf_counter() - tw) / 10 * 1e3
+    la, lm = _launches(torch, lambda: A_fn(xs)), _launches(torch,
+                                                           lambda: M_fn(xs))
+    print(f"distributed applies: A_ms={a_ms:.5f} (device) A_wall_ms="
+          f"{a_wall:.5f} A_launches={la} M(A(x))_ms={ma_ms:.5f} (device) "
+          f"M(A(x))_wall_ms={ma_wall:.5f} M_launches={lm}", flush=True)
+    del prob, A, cache, dmat, solver, build, arrs, A_fn, M_fn, xs
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("12a distributed solve", t0)
+
+    # 12b: the card against the CPU at a small size
+    t1 = time.perf_counter()
+    cases = [("Jacobi", {"Preconditioner Type": "Jacobi"}),
+             ("SchwarzOneLevel", {"Preconditioner Type": "SchwarzOneLevel",
+                                  "Overlap": 2,
+                                  "Combine Values in Overlap": "Averaging"}),
+             ("SchwarzTwoLevel", {"Preconditioner Type": "SchwarzTwoLevel"})]
+    for name, p in cases:
+        out = []
+        for d in (dev, torch.device("cpu")):
+            pr = _laplace2d(torch, 16, dict(
+                p, **{"Use Distributed Solve": True, "Devices": 8}), d)
+            out.append((pr.solve(), pr.solution[0].cpu().numpy()))
+        _small_pair(np, name, out)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        pr = _stokes2d(torch, 8, {"Use Distributed Solve": True,
+                                  "Devices": 4}, d)
+        out.append((pr.solve(), pr.solution.concat().cpu().numpy()))
+    _small_pair(np, "Stokes P2/P1 block GDSW", out)
+    _phase("12b distributed card vs cpu", t1)
+    _phase("12 distributed", t0)
+
+
+def _laplace2d(torch, n, params, device):
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.problems.laplace import Laplace
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    prob = Laplace(Domain.structured(2, n, device=device),
+                   parameter_list=ParameterList("P", dict(params)),
+                   device=device)
+    prob.assemble()
+    prob.assemble_source(lambda x: 1.0 + 0 * x[0])
+    prob.add_bc(lambda x, t: 0.0, 1, 0)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+def _stokes2d(torch, n, params, device):
+    """The lid-driven P2/P1 Stokes cavity of tests/test_schwarz.py:81 with
+    'SchwarzTwoLevel' (the monolithic block GDSW) and one pressure pin."""
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.problems.stokes import Stokes
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    dom_p = Domain.structured(2, n, device=device)
+    prob = Stokes(dom_p.p2_domain(), dom_p, parameter_list=ParameterList(
+        "P", dict(params, **{"Viscosity": 1.0,
+                             "Preconditioner Type": "SchwarzTwoLevel",
+                             "Maximum Iterations": 4000})), device=device)
+    prob.assemble()
+    prob.add_bc(lambda x, t: torch.stack(
+        [torch.isclose(x[1], torch.ones_like(x[1])).double(), 0.0 * x[0]]),
+        1, 0)
+    dom_p.mesh.point_flags = dom_p.mesh.point_flags.copy()
+    dom_p.mesh.point_flags[0] = 77
+    prob.bc_builder.add_bc(lambda x, t: 0.0, 77, 1, dom_p, "Dirichlet", 1)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+def _small_pair(np, name, out):
+    (it_c, x_c), (it_h, x_h) = out  # the card's run, the CPU's
+    dx = float(np.abs(x_c - x_h).max())
+    print(f"distributed {name} cuda vs cpu: iters {it_c} vs {it_h}, "
+          f"max|dx|={dx:.3e} max|x|={np.abs(x_h).max():.3e}", flush=True)
+    _check(it_c == it_h and dx <= 1e-9 * float(np.abs(x_h).max()),
+           f"distributed {name} cuda vs cpu")
+
+
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=64,
@@ -1514,6 +1781,10 @@ def _parser():
     ap.add_argument("--fsi-clusters", type=int, default=64)
     ap.add_argument("--n-fsi2d", type=int, default=64,
                     help="cells per side of each 2D FSI box (FaCSI)")
+    ap.add_argument("--n-dist", type=int, default=64,
+                    help="cells per side of the distributed solve's cube")
+    ap.add_argument("--dist-devices", type=int, default=512,
+                    help="shards of the distributed solve")
     ap.add_argument("--n-fsi-gi", type=int, default=32,
                     help="cells per side of each 2D FSI box (GI)")
     return ap
@@ -2105,7 +2376,7 @@ def main(argv=None):
     del prob, A, A_sp, cache, db, prec, u, Fb, x6, ref6, small
     gc.collect()
     torch.cuda.empty_cache()
-    _phase7(torch, np, args, dev)
+    ref7 = _phase7(torch, np, args, dev)
     gc.collect()
     torch.cuda.empty_cache()
     _phase8(torch, np, args, dev, hold_b123)
@@ -2118,6 +2389,9 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     _phase11(torch, np, args, dev, hold_b123)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase12(torch, np, args, dev, ref7)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

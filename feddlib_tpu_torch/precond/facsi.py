@@ -18,7 +18,7 @@ The apply is plain torch (the Schwarz applies, gathers and two CSR
 products), as the JAX package runs it as XLA.  A five-field GI system is
 refused with a ValueError: the JAX package's operator returns the four GE
 blocks for it and fails inside GMRES.  `distributed_facsi` is not ported
-yet (ROADMAP.md A10).
+yet (ROADMAP.md A10b).
 """
 
 from __future__ import annotations

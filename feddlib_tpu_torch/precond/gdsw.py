@@ -16,9 +16,10 @@ numpy/scipy work:
 
 `TwoLevelSchwarz` puts the coarse level on top of the one-level
 `SchwarzPreconditioner` (precond/schwarz.py), additively or
-multiplicatively.  `distributed_two_level` is not ported yet (ROADMAP.md
-A10); the padded two-level preconditioner of the mixed-precision solve is
-precond/cluster_coarse.py.
+multiplicatively; `distributed_two_level` puts it on top of
+`distributed_schwarz` for the shard-axis solve (parallel/solve.py), its
+setup reading only the shards' rows.  The padded two-level preconditioner
+of the mixed-precision solve is precond/cluster_coarse.py.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from feddlib_tpu_torch.la.csr import CsrMatrix, ell_apply
 from feddlib_tpu_torch.la.dense_blocks import _parallel_map
 from feddlib_tpu_torch.la.map import IndexMap
+from feddlib_tpu_torch.utils.device import resolve_device
 
 
 def interface_components(node_part_sets: List[np.ndarray], n_nodes: int,
@@ -262,20 +264,24 @@ class GDSWCoarseOperator:
     spaces) while the energy-minimal extension and A₀ use the MERGED
     matrix."""
 
-    def __init__(self, A: CsrMatrix, unique_map: IndexMap,
+    def __init__(self, A: Optional[CsrMatrix], unique_map: IndexMap,
                  node_part_sets: Optional[List[np.ndarray]] = None,
                  points: Optional[np.ndarray] = None,
                  dofs_per_node: int = 1, null_space: str = "laplace",
                  dirichlet_mask: Optional[np.ndarray] = None,
                  dtype=torch.float64, rap: str = "host",
                  blocks: Optional[List[dict]] = None,
-                 variant: str = "GDSW", ipou: Optional[dict] = None):
-        self.device = A.device
+                 variant: str = "GDSW", row_source=None,
+                 ipou: Optional[dict] = None, device=None):
+        """A may be None when `row_source` gives the rows (the
+        distributed setup); Φ then lives on `device`."""
+        self.device = (A.device if A is not None
+                       else resolve_device(device or "cuda"))
         if variant not in ("GDSW", "RGDSW", "IPOUHarmonic"):
             raise ValueError(f"unknown coarse variant {variant!r}")
         self.variant = variant
         self.ipou = ipou
-        n = A.shape[0]
+        n = unique_map.n_global if A is None else A.shape[0]
         if blocks is None:
             if points is None or node_part_sets is None:
                 raise ValueError("need node_part_sets+points or blocks")
@@ -285,13 +291,16 @@ class GDSWCoarseOperator:
                            points=points, dofs_per_node=dofs_per_node,
                            null_space=null_space)]
         # All matrix access below is ROW-decomposed: row_source(p) yields
-        # (owned_gids, csr [n_own, n]) for part p (the distributed path of
-        # the JAX package feeds per-device rows here; ROADMAP A10).
-        sp_all = A.to_scipy().tocsr()
+        # (owned_gids, csr [n_own, n]) for part p — serial: rows of the
+        # global CSR; distributed: DistributedCsr.local_rows.
+        if row_source is None:
+            if A is None:
+                raise ValueError("need A or row_source")
+            sp_all = A.to_scipy().tocsr()
 
-        def row_source(p):
-            owned = unique_map.partition_indices[p]
-            return owned, sp_all[owned]
+            def row_source(p):
+                owned = unique_map.partition_indices[p]
+                return owned, sp_all[owned]
 
         # per-block interface classification + null-space restrictions;
         # dof-level interface mask over the MERGED index space.  Dirichlet
@@ -569,3 +578,174 @@ class TwoLevelSchwarz:
             else:
                 self._op = (_two_level_apply, (*l1, coarse_ops))
         return self._op
+
+
+def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
+                          dofs_per_node: int = 1,
+                          combine: str = "Restricted",
+                          null_space: str = "laplace",
+                          dirichlet_mask: Optional[np.ndarray] = None,
+                          coarse_ranks: int = 0, variant: str = "GDSW",
+                          overlap: int = 1,
+                          blocks: Optional[List[dict]] = None,
+                          factor: str = "host",
+                          ipou: Optional[dict] = None,
+                          coarse_procs: int = 0,
+                          level_combination: str = "Additive",
+                          coarse_solver: str = "dense",
+                          coarse_tol: float = 1e-6,
+                          coarse_maxiter: int = 200):
+    """Two-level GDSW for the shard-axis solver (parallel/solve.py), built
+    from the DistributedCsr alone: the setup reads only the shards' rows
+    (DistributedCsr.local_rows).
+
+    Level 1 is `distributed_schwarz`.  Each shard holds the compact
+    restriction of Φ to its owned rows, [N_o, C_loc] over the C_loc coarse
+    functions supported there (`cids`); the coarse residual is the psum
+    over the shards of Φ_ownᵀ r, solved against A₀ and prolonged locally.
+    Single-variable problems pass (part, points, dofs_per_node); block
+    systems pass `blocks`, the per-block specs of GDSWCoarseOperator.
+
+    Coarse solver: 'dense' (A₀⁻¹), 'sparse' (the sparse LU of A₀) or
+    'iterative' (GMRES to `coarse_tol` on the ELL of A₀).  Shards stacked
+    on one device hold one copy of what the JAX package replicates (A₀⁻¹,
+    the factors, the ELL of A₀): the coarse residual is the same on every
+    shard, so it is solved once per apply and the result broadcast — the
+    JAX package's result, without its n_dev copies.  The placement options
+    of the reference's Distribution sublist (coarse_procs = k > 0 shards
+    over the first k, coarse_ranks = k > 0 over the last k, which must own
+    no matrix rows: IndexMap.with_free_parts) are validated but give the
+    same single coarse solve: row placement matters only once shards sit on
+    several cards (ROADMAP A10c).
+
+    Returns (build_fn, arrays); `build_fn.timings` adds "gdsw_s" (Φ and
+    A₀), "phi_s" (the compact Φ) and "coarse_s" (the coarse solver's setup)
+    to the level-1 seconds, and `build_fn.shape` adds nc and C_loc."""
+    from feddlib_tpu_torch.parallel.spmd import DeviceAxis, DistributedCsr
+    from feddlib_tpu_torch.precond.schwarz import distributed_schwarz
+
+    build1, arrays1 = distributed_schwarz(dmat, overlap=overlap,
+                                          combine=combine, factor=factor)
+    n1 = len(arrays1)
+    umap = dmat.unique_map
+    n_dev, dev = dmat.n_dev, dmat.device
+    if coarse_ranks < 0 or coarse_ranks >= n_dev:
+        raise ValueError("coarse_ranks must be in [0, n_dev)")
+    if coarse_ranks:
+        for p in range(n_dev - coarse_ranks, n_dev):
+            if len(umap.partition_indices[p]):
+                raise ValueError(
+                    "dedicated coarse devices must own no matrix rows "
+                    "(build the unique map with with_free_parts)")
+    if level_combination not in ("Additive", "Multiplicative"):
+        raise ValueError(f"unknown level combination {level_combination!r}")
+    if coarse_ranks and coarse_procs:
+        raise ValueError("choose coarse_ranks OR coarse_procs")
+    if coarse_solver not in ("dense", "sparse", "iterative"):
+        raise ValueError(f"unknown coarse solver {coarse_solver!r}")
+    t0 = time.perf_counter()
+    coarse = GDSWCoarseOperator(
+        None, umap,
+        part.repeated_map.partition_indices if part is not None else None,
+        points, dofs_per_node, null_space, dirichlet_mask, variant=variant,
+        blocks=blocks, row_source=dmat.local_rows, ipou=ipou, device=dev)
+    mult = level_combination == "Multiplicative"
+    t1 = time.perf_counter()
+    phi = coarse.phi.to_scipy()
+    nc = coarse.n_coarse
+    N_o = dmat.plan.N_o
+    # the compact per-shard Φ: only the coarse functions supported on the
+    # shard's owned rows
+    sup = []
+    for p in range(n_dev):
+        owned = umap.partition_indices[p]
+        sup.append(np.unique(phi[owned].indices) if len(owned)
+                   else np.zeros(0, np.int64))
+    C_loc = max(max((len(s) for s in sup), default=1), 1)
+    phi_comp = np.zeros((n_dev, N_o, C_loc))
+    cids = np.full((n_dev, C_loc), nc, np.int64)  # pad → zero slot nc
+    for p in range(n_dev):
+        owned = umap.partition_indices[p]
+        s = sup[p]
+        cids[p, : len(s)] = s
+        if len(owned):
+            sub = phi[owned].tocoo()
+            phi_comp[p, sub.row, np.searchsorted(s, sub.col)] = sub.data
+    arrays = list(arrays1) + [torch.as_tensor(phi_comp, device=dev),
+                              torch.as_tensor(cids, device=dev)]
+    t2 = time.perf_counter()
+
+    if coarse_solver == "sparse":
+        from feddlib_tpu_torch.la.sparse_lu import BatchedSparseLU
+
+        lu = BatchedSparseLU([coarse.A0_sparse().tocsc()], device=dev)
+        arrays += list(lu.arrays())
+        S_lu = lu.S
+    elif coarse_solver == "iterative":
+        A0s = coarse.A0_sparse()
+        kmax = max(int(np.diff(A0s.indptr).max()), 1)
+        ecols = np.zeros((nc, kmax), np.int64)
+        evals = np.zeros((nc, kmax))
+        for i in range(nc):
+            lo, hi = A0s.indptr[i], A0s.indptr[i + 1]
+            ecols[i, : hi - lo] = A0s.indices[lo:hi]
+            evals[i, : hi - lo] = A0s.data[lo:hi]
+        arrays += [torch.as_tensor(evals, device=dev),
+                   torch.as_tensor(ecols, device=dev)]
+    else:
+        # one [nc, nc] copy, seen by every shard
+        arrays.append(coarse.A0_inv.expand(n_dev, nc, nc))
+    t3 = time.perf_counter()
+
+    def build(prec_arrays, ctx):
+        from feddlib_tpu_torch.solvers.krylov import gmres_loop
+
+        M1 = build1(prec_arrays[:n1], ctx)
+        phi_p, cid = prec_arrays[n1], prec_arrays[n1 + 1]
+        solver_arrs = prec_arrays[n1 + 2:]
+        ed, ec, mk, imp_f, exp_f = ctx
+
+        def A_loc(x):
+            return DistributedCsr.local_matvec(ed, ec, imp_f(x))
+
+        def solve_A0(rc):
+            if coarse_solver == "sparse":
+                from feddlib_tpu_torch.la.sparse_lu import solve_batched
+
+                r_pad = rc.new_zeros(1, S_lu)
+                r_pad[0, :nc] = rc
+                return solve_batched(r_pad, tuple(solver_arrs))[0, :nc]
+            if coarse_solver == "iterative":
+                evs, ecs = solver_arrs
+
+                def A0mv(v):
+                    return (evs * v[ecs]).sum(1)
+
+                z, _, _, _ = gmres_loop(A0mv, lambda r: r, rc,
+                                        torch.zeros_like(rc), coarse_tol,
+                                        min(coarse_maxiter, nc),
+                                        coarse_maxiter)
+                return z
+            return solver_arrs[0][0] @ rc
+
+        def coarse_corr(r):
+            q = torch.einsum("pnc,pn->pc", phi_p, r)          # [n_dev, C_loc]
+            rc = DeviceAxis.psum(q.new_zeros(q.shape[0], nc + 1).scatter_(
+                1, cid, q))[:nc]
+            zc = solve_A0(rc)
+            zg = torch.cat([zc, zc.new_zeros(1)])[cid]          # [n_dev, C_loc]
+            return torch.einsum("pnc,pc->pn", phi_p, zg)
+
+        def M(r):
+            z1 = M1(r)
+            if mult:
+                # the coarse level acts on the level-1-updated residual
+                return z1 + coarse_corr(r - A_loc(z1))
+            return z1 + coarse_corr(r)
+
+        return M
+
+    build.timings = dict(build1.timings, gdsw_s=t1 - t0, phi_s=t2 - t1,
+                         coarse_s=t3 - t2)
+    build.shape = dict(build1.shape, nc=nc, C_loc=C_loc)
+    return build, arrays

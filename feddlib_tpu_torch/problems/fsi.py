@@ -22,7 +22,7 @@ with the BDF fluid mass and the Newmark solid → update the histories.
 The geometry-implicit (GI) loop `advance_gi` adds the mesh displacement g
 as a fifth field, with the shape-derivative blocks of
 fe/shape_derivatives.py.  The distributed pipelines of the JAX package
-('Use Distributed Solve') are not ported yet (ROADMAP.md A10).
+('Use Distributed Solve') are not ported yet (ROADMAP.md A10b).
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def _refuse_distributed(pl) -> None:
         raise NotImplementedError(
             "FSI with 'Use Distributed Solve' (the multi-mesh device "
             "pipeline and distributed FaCSI) is not ported yet "
-            "(ROADMAP.md A10)")
+            "(ROADMAP.md A10b)")
 
 
 class FSI(NonLinearProblem):

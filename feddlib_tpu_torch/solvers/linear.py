@@ -14,12 +14,18 @@ Precision'): an f64 iterative refinement around an f32 restarted GMRES that
 runs in the padded cluster space, with the padded SELL operator
 (`PaddedSplitSpMV`) as A and the restricted dense-block Schwarz —
 optionally with the padded GDSW coarse level (`'TwoLevel': True`) — as M.
-'FaCSI' (precond/facsi.py) preconditions the four-field FSI system.  The
-distributed solve raises NotImplementedError and names its ROADMAP.md item.
+'FaCSI' (precond/facsi.py) preconditions the four-field FSI system.  And
+the distributed solve ('Use Distributed Solve' + 'Devices'): the assembled
+system split into owned-row shards stacked on the problem's device, halo
+exchanges over the shard axis, the distributed one- / two-level Schwarz
+and the Krylov loop over the stacked vectors (parallel/).  Its device-
+resident assembly pipeline ('Use Device Pipeline') raises
+NotImplementedError and names its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import numpy as np
@@ -31,6 +37,21 @@ from feddlib_tpu_torch.mesh.partition import MeshPartition
 
 def _jacobi_op(ops, r):
     return ops[0] * r
+
+
+def _coarse_space(params):
+    """(null space, 'Coarse Space Variant', IPOU options or None) of the
+    GDSW coarse level from the parameter list."""
+    nsp = params.get("Null Space Type", "laplace").lower()
+    nsp = "elasticity" if "elas" in nsp else "laplace"
+    variant = params.get("Coarse Space Variant", "GDSW")
+    ipou = None
+    if variant == "IPOUHarmonic":
+        ipou = dict(pou_type=params.get("IPOU Type", "GDSWStar"),
+                    vertices=bool(params.get("IPOU Vertices", True)),
+                    edges=bool(params.get("IPOU Edges", True)),
+                    faces=bool(params.get("IPOU Faces", True)))
+    return nsp, variant, ipou
 
 
 def point_cluster_operators(A, points, n_clusters: int, dofs_per_node: int):
@@ -99,15 +120,7 @@ class Preconditioner:
         if prec_type in ("SchwarzTwoLevel", "GDSW", "TwoLevel"):
             from feddlib_tpu_torch.precond.gdsw import TwoLevelSchwarz
 
-            nsp = params.get("Null Space Type", "laplace").lower()
-            nsp = "elasticity" if "elas" in nsp else "laplace"
-            variant = params.get("Coarse Space Variant", "GDSW")
-            ipou = None
-            if variant == "IPOUHarmonic":
-                ipou = dict(pou_type=params.get("IPOU Type", "GDSWStar"),
-                            vertices=bool(params.get("IPOU Vertices", True)),
-                            edges=bool(params.get("IPOU Edges", True)),
-                            faces=bool(params.get("IPOU Faces", True)))
+            nsp, variant, ipou = _coarse_space(params)
             common = dict(overlap=overlap, combine=combine,
                           dirichlet_mask=self.problem.merged_dirichlet_mask(),
                           variant=variant,
@@ -260,6 +273,13 @@ class LinearSolver:
             "IterationDetails" in str(params.get("Verbosity", ""))
         out_freq = int(params.get("Output Frequency", 10))
 
+        # a problem-owned distributed path (the JAX package's FSI pipeline)
+        # assembles and solves itself and returns the split solution; its
+        # first setter, FSI's distributed solve, comes with ROADMAP A10b
+        hook = getattr(problem, "_distributed_solve_hook", None)
+        if hook is not None:
+            return hook(b)
+
         system = problem.bc_system()
         if len(problem.variables) == 1:
             A = system.get_block(0, 0)
@@ -267,8 +287,8 @@ class LinearSolver:
             A = system.merge()
 
         if bool(params.get("Use Distributed Solve", False)):
-            raise NotImplementedError(
-                "'Use Distributed Solve' is not ported yet (ROADMAP.md A10)")
+            return self._solve_distributed(problem, A, b, params, tol,
+                                           maxiter, restart, method)
         if bool(params.get("Use Mixed Precision", False)):
             return self._solve_mixed(problem, A, b, params, tol, maxiter,
                                      restart)
@@ -431,6 +451,113 @@ class LinearSolver:
         if not res.converged:
             warnings.warn(f"mixed-precision solve: relres={res.relres}")
         return BlockVector.split(res.x, problem.block_sizes()), res.iters
+
+    def _solve_distributed(self, problem, A, b: BlockVector, params, tol,
+                           maxiter, restart, method):
+        """Solve the merged system over a shard axis: owned-row shards of
+        A stacked on the problem's device, halo imports, the distributed
+        Schwarz (one level, or two with the GDSW coarse level) and the
+        Krylov loop with its dots over every shard.
+
+        'Devices' is the shard count; it defaults to the device count of
+        the problem's device type (the JAX package's len(jax.devices()),
+        8 virtual devices in its test harness), so tests and the card's
+        smoke run pass it.  The shards, plans and preconditioner are cached
+        on the problem (`_dist_cache`) while A's pattern is unchanged and
+        the preconditioner is not stale.  'Use Device Pipeline' (the
+        device-resident assembly of ROADMAP.md A10b) raises."""
+        from feddlib_tpu_torch.parallel.solve import DistributedSolver
+        from feddlib_tpu_torch.parallel.spmd import (DeviceAxis,
+                                                     DistributedCsr,
+                                                     lane_index)
+
+        if bool(params.get("Use Device Pipeline", False)):
+            raise NotImplementedError(
+                "'Use Device Pipeline' (the device-resident distributed "
+                "assembly and its preconditioner path) is not ported yet "
+                "(ROADMAP.md A10b)")
+        dev = problem.device
+        n_default = (torch.cuda.device_count() if dev.type == "cuda"
+                     else torch.cpu.device_count())
+        n_dev = int(params.get("Devices", n_default))
+        cache = getattr(problem, "_dist_cache", None)
+        if (cache is None or cache["pattern"] is not A.pattern
+                or problem._prec_stale):
+            dom0 = problem.domains[0]
+            base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
+                         else dom0.mesh)
+            t0 = time.perf_counter()
+            part = MeshPartition(base_mesh, n_dev)
+            dof_map = problem.preconditioner._merged_dof_map(part)
+            t_p = time.perf_counter()
+            dmat = DistributedCsr(A, dof_map)
+            t1 = time.perf_counter()
+            solver = DistributedSolver(dmat, DeviceAxis(n_dev, dev))
+            prec_type = params.get("Preconditioner Type", "SchwarzOneLevel")
+            overlap = int(params.get("Overlap", 1))
+            combine = params.get("Combine Values in Overlap", "Restricted")
+            if prec_type in ("SchwarzTwoLevel", "GDSW", "TwoLevel"):
+                from feddlib_tpu_torch.precond.gdsw import \
+                    distributed_two_level
+
+                nsp, variant, ipou = _coarse_space(params)
+                cprocs = int(params.get("Coarse NumProcs", 0))
+                common = dict(
+                    combine=combine, overlap=overlap,
+                    dirichlet_mask=problem.merged_dirichlet_mask(),
+                    variant=variant, ipou=ipou,
+                    coarse_procs=0 if cprocs <= 1 else cprocs,
+                    level_combination=params.get("Level Combination",
+                                                 "Additive"),
+                    coarse_solver=params.get("Coarse Solver", "dense"),
+                    coarse_tol=float(params.get("Coarse Tolerance", 1e-6)),
+                    coarse_maxiter=int(params.get("Coarse Max Iterations",
+                                                  200)))
+                if len(problem.variables) == 1:
+                    precond = distributed_two_level(
+                        dmat, part, dom0.mesh.points,
+                        problem.total_dofs_per_node(), null_space=nsp,
+                        **common)
+                else:
+                    # the monolithic block GDSW of the serial path
+                    precond = distributed_two_level(
+                        dmat, blocks=problem.preconditioner._block_specs(
+                            part, nsp), **common)
+            elif prec_type == "Jacobi":
+                precond = "jacobi"
+            else:
+                from feddlib_tpu_torch.precond.schwarz import \
+                    distributed_schwarz
+
+                precond = distributed_schwarz(dmat, overlap=overlap,
+                                              combine=combine)
+            # the stacked lane of each global dof, for the vector scatter /
+            # gather on the device
+            gids, lanes = lane_index(dof_map, dmat.plan.N_o)
+            cache = {"pattern": A.pattern, "dmat": dmat, "solver": solver,
+                     "precond": precond, "dof_map": dof_map,
+                     "gids": torch.as_tensor(gids, device=dev),
+                     "lanes": torch.as_tensor(lanes, device=dev),
+                     "timings": {"partition_s": t_p - t0,
+                                 "dmat_s": t1 - t_p,
+                                 "precond_s": time.perf_counter() - t1}}
+            problem._dist_cache = cache
+            problem._prec_stale = False
+        dmat, solver = cache["dmat"], cache["solver"]
+        gids, lanes = cache["gids"], cache["lanes"]
+        bf = b.concat()
+        b_dist = bf.new_zeros(dmat.n_dev * dmat.plan.N_o)
+        b_dist[lanes] = bf[gids]
+        x, iters, rel = solver.solve(
+            b_dist.view(dmat.n_dev, -1),
+            method="cg" if method == "cg" else "gmres", tol=tol,
+            maxiter=maxiter, restart=restart, precond=cache["precond"])
+        problem.last_relres = rel
+        if rel > tol:
+            warnings.warn(f"distributed solve not converged: relres={rel}")
+        xg = bf.new_zeros(bf.shape[0])
+        xg[gids] = x.reshape(-1)[lanes]
+        return BlockVector.split(xg, problem.block_sizes()), iters
 
     def solve(self, problem, rhs=None) -> int:
         x, iters = self.solve_system(

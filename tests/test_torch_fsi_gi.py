@@ -44,7 +44,7 @@ def test_distributed_solve_raises():
     prob = _problem("torch", 3, dict(FACSI, **{"Use Distributed Solve":
                                                 True}))
     for run in (prob.advance, prob.advance_gi):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
             run(t_end=0.02)
 
 

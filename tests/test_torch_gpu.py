@@ -899,3 +899,102 @@ def test_fsi_ge_step_on_card_matches_cpu(hopper):
     for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
         assert _cuda.launch_counts[k] > 0
     assert _rel(prob.solution.concat().cpu(), runs[0][1]) < 1e-6
+
+
+def _dist_plan(device):
+    from feddlib_tpu_torch.la.csr import CsrMatrix
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.parallel.spmd import DistributedCsr
+
+    dom = Domain.structured(2, 16, device="cpu")
+    K, _ = host_poisson_dirichlet(dom)
+    part = MeshPartition(dom.mesh, 8)
+    return dom, part, DistributedCsr(CsrMatrix.from_scipy(K, device=device),
+                                     part.unique_map)
+
+
+@pytest.mark.gpu
+def test_stacked_collectives_on_card_match_cpu(hopper):
+    """The shard-axis collectives (ppermute, psum, all_gather) and the halo
+    exchanges built on them (the rounds' importer and exporter, the
+    all_gather import) on the card equal the same calls on the CPU bit for
+    bit; the all_gather export (a fixed-order scatter_sum on the card) and
+    the ELL matvec (sums in another order) within 1e-14 relative.  psum's
+    input is integer-valued, so any summation order is exact."""
+    from feddlib_tpu_torch.parallel import spmd
+
+    rng = np.random.default_rng(7)
+    xg = None
+    out = {}
+    for dev in ("cpu", hopper):
+        dom, part, dm = _dist_plan(dev)
+        p = dm.plan
+        if xg is None:
+            xg = rng.standard_normal(dom.n_nodes)
+            y_col = rng.standard_normal((8, p.N_o + p.G))
+            ints = rng.integers(-1000, 1000, (8, 5000)).astype(np.float64)
+        ax = spmd.DeviceAxis.make(8, device=dev)
+        x = spmd.distribute_vector(xg, part.unique_map, p.N_o, device=dev)
+        y = torch.as_tensor(y_col, device=dev)
+        k = torch.as_tensor(ints, device=dev)
+        out[str(dev)] = [
+            ax.ppermute(y, [(0, 3), (3, 0), (5, 6)]),
+            ax.psum(k), ax.all_gather(k),
+            p.importer()(x, p.import_arrays),
+            p.exporter()(y, p.export_arrays),
+            spmd.import_ghosts(x, p.send_idx, p.ghost_src),
+            spmd.export_add(y, p.N_o, p.recv_src, p.recv_dst),
+            spmd.DistributedCsr.local_matvec(
+                dm.ell_data, dm.ell_cols, p.importer()(x, p.import_arrays))]
+    for i, (a, b) in enumerate(zip(out["cpu"], out[str(hopper)])):
+        b = b.cpu()
+        if i >= 6:
+            assert _rel(b, a) < 1e-14
+        else:
+            assert torch.equal(a, b), i
+
+
+def _dist_laplace(device, prec):
+    from feddlib_tpu_torch.problems.laplace import Laplace
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    prob = Laplace(Domain.structured(2, 16, device=device),
+                   parameter_list=ParameterList("P", {
+                       "Use Distributed Solve": True, "Devices": 8,
+                       "Preconditioner Type": prec}), device=device)
+    prob.assemble()
+    prob.assemble_source(lambda x: 1.0 + 0 * x[0])
+    prob.add_bc(lambda x, t: 0.0, 1, 0)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["SchwarzOneLevel", "SchwarzTwoLevel"])
+def test_distributed_solve_on_card_matches_cpu(hopper, prec):
+    """Problem.solve() with 'Use Distributed Solve' over 8 shards stacked
+    on the card: the CPU's GMRES count, x within 1e-9 of max |x|, and
+    every tensor of the shards on the card."""
+    runs = []
+    for dev in ("cpu", hopper):
+        prob = _dist_laplace(dev, prec)
+        runs.append((prob.solve(), prob.solution[0].cpu()))
+    cache = prob._dist_cache
+    assert cache["dmat"].ell_data.device.type == "cuda"
+    assert cache["precond"][1][0].device.type == "cuda"
+    assert runs[0][0] == runs[1][0]
+    assert _rel(runs[1][1], runs[0][1]) < 1e-9
+
+
+@pytest.mark.gpu
+def test_distributed_solve_bitwise_repeatable_on_card(hopper):
+    """Two distributed two-level solves on the card (fresh problems, fresh
+    plans) give bitwise-equal iterates: no atomics over real duplicate
+    contributions on the shard axis."""
+    xs = []
+    for _ in range(2):
+        prob = _dist_laplace(hopper, "SchwarzTwoLevel")
+        it = prob.solve()
+        xs.append((it, prob.solution[0].clone()))
+    assert xs[0][0] == xs[1][0]
+    assert torch.equal(xs[0][1], xs[1][1])

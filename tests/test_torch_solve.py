@@ -161,9 +161,11 @@ def test_entry_points_default_to_cuda():
 
 def test_unported_paths_raise():
     """What is still unported raises and names its ROADMAP.md item: the
-    distributed solve (A10).  (Before the Schwarz types and FaCSI were
-    ported, the default preconditioner and 'FaCSI' raised here;
-    test_default_solve_converges and tests/test_torch_fsi.py hold them
+    device-resident distributed assembly ('Use Device Pipeline', A10b).
+    (Before the Schwarz types, FaCSI and the distributed solve were
+    ported, the default preconditioner, 'FaCSI' and 'Use Distributed
+    Solve' raised here; test_default_solve_converges,
+    tests/test_torch_fsi.py and tests/test_torch_distributed.py hold them
     now.  FaCSI acts on the four GE fields of an FSI problem only, and
     says so on a one-field problem.)"""
     pt = _laplace(TDomain, TLaplace, TPL, 3, 2, False, device="cpu")
@@ -172,7 +174,8 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="four GE fields"):
         pt.solve()
     pt.parameter_list["Use Distributed Solve"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
+    pt.parameter_list["Use Device Pipeline"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
         pt.solve()
 
 
