@@ -109,7 +109,29 @@ exits non-zero):
      (overlap 2, Averaging) and two-level GDSW, and a P2/P1 Stokes cavity
      on 4 shards through the block GDSW, each on the card against the CPU
      (equal counts, x within 1e-9 of max|x|).  Phase 12 launches no Hopper
-     kernel: the JAX package computes all of it in XLA.
+     kernel: the JAX package computes all of it in XLA;
+ 13. the device-resident pipeline (parallel/pipeline.py), shards stacked
+     on the card: 13a phase 12a's system through Problem.solve with 'Use
+     Device Pipeline' (the same 512 shards and two-level GDSW from the
+     pipeline's block specs): finalize seconds by part, L / S / K / N_o /
+     E_max, the exchange rounds and the elements they move, the bytes on
+     the card, the host f64 residual, the count against phase 12a's (±1),
+     x within 1e-6 of max|x| and the collected matrix within 1e-12 of
+     max|a| of phase 12a's, two assemblies bitwise equal, a second solve
+     cached and bitwise equal, one assembly's device and wall ms and
+     launches; 13b Newton on phase 8's cavity (--n-pipe-ns, 64 shards,
+     block GDSW) with the pipeline against the split shards: equal Newton
+     and GMRES counts, solutions within 1e-8, one solution upload
+     (n_distributes = 1 + Newton), after the host estimate of level 1;
+     13c two GE steps of phase 11b's two-box at 32 cells a box
+     (--n-pipe-fsi; cut from phase 11b's 64, whose solid FaCSI factors
+     took 29 s a Newton step on the host) with 'Use
+     Distributed Solve' (32 shards, 8 solid; distributed FaCSI) against
+     the serial FaCSI loop (rtol 1e-6, atol 1e-9; one pipeline build);
+     13d one GI step of phase 11c's (16 shards, 4 solid) against the
+     serial step; 13e the small pipeline cases of the CPU tests (Laplace,
+     the device-RHS heat loop, TPM consolidation, hyperelastic Newton) on
+     the card against the CPU.  Phase 13 launches no Hopper kernel either.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -1546,7 +1568,10 @@ def _phase12(torch, np, args, dev, ref7):
     params = {"Use Distributed Solve": True, "Devices": n_dev,
               "Preconditioner Type": "SchwarzTwoLevel",
               "Convergence Tolerance": 1e-8}
+    t_asm = time.perf_counter()
     prob = _default_laplace(torch, args.n_dist, params, dev)
+    torch.cuda.synchronize()
+    t_asm = time.perf_counter() - t_asm
     A = prob.bc_system().get_block(0, 0)
     A_sp = A.to_scipy()
     # the host estimate of level 1 before the card holds any of it: the
@@ -1601,17 +1626,20 @@ def _phase12(torch, np, args, dev, ref7):
           f"halo {co['rounds']} rounds / {co['ppermute_elems']} elems",
           flush=True)
     _check(sh["S"] == S_est, "level-1 width equals the host estimate")
+    ref7s = ("" if ref7 is None else f" phase7_iters={ref7['iters']} "
+             f"phase7_host_relres={ref7['relres']:.3e}")
     print(f"distributed solve: gmres_iters={iters} relres="
           f"{prob.last_relres:.3e} host_f64_relres={rel:.3e} "
           f"first_solve_s={t_first:.3f} (setup {setup_s:.3f} inside, "
-          f"GMRES {t_first - setup_s:.3f}) "
-          f"phase7_iters={ref7['iters']} phase7_host_relres="
-          f"{ref7['relres']:.3e} hopper_launches="
+          f"GMRES {t_first - setup_s:.3f}){ref7s} hopper_launches="
           f"{dict(_cuda.launch_counts)}", flush=True)
     _check(rel <= 1e-8, f"distributed host residual {rel} > 1e-8")
-    same_system = (args.n_dist == ref7["n"]
-                   and n_dev == ref7["parts"])
-    if same_system:
+    same_system = ref7 is not None and (args.n_dist == ref7["n"]
+                                        and n_dev == ref7["parts"])
+    if ref7 is None:
+        print("distributed vs phase 7: comparison skipped (phase 7 not "
+              "run)", flush=True)
+    elif same_system:
         dx = float(np.abs(u - ref7["x"]).max())
         print(f"distributed vs phase 7: max|x_dist - x_serial|={dx:.3e} "
               f"max|x|={np.abs(u).max():.3e}")
@@ -1663,6 +1691,10 @@ def _phase12(torch, np, args, dev, ref7):
     print(f"distributed applies: A_ms={a_ms:.5f} (device) A_wall_ms="
           f"{a_wall:.5f} A_launches={la} M(A(x))_ms={ma_ms:.5f} (device) "
           f"M(A(x))_wall_ms={ma_wall:.5f} M_launches={lm}", flush=True)
+    # phase 13a's reference: this solve and its split matrix, collected
+    ref12 = {"n": args.n_dist, "parts": n_dev, "iters": iters, "x": u,
+             "A": _collect_csr(np, dmat), "asm_s": t_asm,
+             "dmat_s": cache["timings"]["dmat_s"]}
     del prob, A, cache, dmat, solver, build, arrs, A_fn, M_fn, xs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1690,6 +1722,7 @@ def _phase12(torch, np, args, dev, ref7):
     _small_pair(np, "Stokes P2/P1 block GDSW", out)
     _phase("12b distributed card vs cpu", t1)
     _phase("12 distributed", t0)
+    return ref12
 
 
 def _laplace2d(torch, n, params, device):
@@ -1737,6 +1770,454 @@ def _small_pair(np, name, out):
           f"max|dx|={dx:.3e} max|x|={np.abs(x_h).max():.3e}", flush=True)
     _check(it_c == it_h and dx <= 1e-9 * float(np.abs(x_h).max()),
            f"distributed {name} cuda vs cpu")
+
+
+def _collect_csr(np, dmat):
+    """Distributed ELL → global scipy CSR (the check's oracle, as
+    tests/test_fsi_pipeline.py:21 collects it)."""
+    import scipy.sparse as sps
+
+    n = dmat.n_global
+    rows_l, cols_l, vals_l = [], [], []
+    for p in range(dmat.n_dev):
+        owned, R = dmat.local_rows(p)
+        if len(owned):
+            coo = R.tocoo()
+            rows_l.append(owned[coo.row])
+            cols_l.append(coo.col)
+            vals_l.append(coo.data)
+    return sps.csr_matrix((np.concatenate(vals_l),
+                           (np.concatenate(rows_l), np.concatenate(cols_l))),
+                          shape=(n, n))
+
+
+def _pipe_bytes(torch, pipe):
+    """Device bytes of a pipeline's plans and geometry."""
+    fps = [(fp["pos"], fp["mask"], fp["elem_idx"], fp["plan"].import_arrays)
+           for fp in pipe.field_plans.values()]
+    return _stacked_bytes(
+        torch, pipe.seg_ids, pipe._seg_plan, pipe._xc_sidx, pipe._xc_rdst,
+        pipe._xc_src, pipe._xc_plan, pipe.ell_cols, pipe.ell_src, pipe._diag,
+        pipe.const_vals, pipe.mesh_vc, pipe.mesh_valid,
+        list(pipe.mesh_vc_ref.values()), list(pipe.row_wts.values()),
+        list(pipe.elem_data.values()), pipe.plan.import_arrays,
+        pipe.plan.export_arrays, fps)
+
+
+def _rounds(pipe):
+    """(rounds, Σ W a shard, elements moved in all) of the exchange."""
+    moved = sum(int((r != pipe.L).sum()) for r in pipe._xc_rdst)
+    return len(pipe._xc_meta), sum(w for _, w in pipe._xc_meta), moved
+
+
+def _phase13a(torch, np, args, dev, ref12):
+    """13a: the main path's system through 'Use Device Pipeline'."""
+    from feddlib_tpu_torch.la import _cuda
+
+    t0 = time.perf_counter()
+    n_dev = args.dist_devices
+    params = {"Use Distributed Solve": True, "Use Device Pipeline": True,
+              "Devices": n_dev, "Preconditioner Type": "SchwarzTwoLevel",
+              "Convergence Tolerance": 1e-8}
+    prob = _default_laplace(torch, args.n_dist, params, dev)
+    A_sp = prob.bc_system().get_block(0, 0).to_scipy()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    t1 = time.perf_counter()
+    iters = prob.solve()
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t1
+    x = prob.solution[0].clone()
+    u = x.cpu().numpy()
+    rel = _host_relres(np, A_sp, prob.rhs[0], x)
+    pc, pp = prob._pipe_cache, prob._pipe_prec
+    pipe, solver = pc["pipe"], pp["solver"]
+    dmat = solver.dmat
+    build, arrs = pp["precond"]
+    tm, ft = build.timings, pipe.timings
+    _check(x.device.type == "cuda" and dmat.ell_data.device.type == "cuda"
+           and pipe.seg_ids.device.type == "cuda", "pipeline on the card")
+    print(f"pipeline setup s: partition={pc['timings']['partition_s']:.3f} "
+          f"finalize={pc['timings']['finalize_s']:.3f} ("
+          + " ".join(f"{k[:-2]} {v:.3f}" for k, v in ft.items())
+          + f") preconditioner={pp['precond_s']:.3f} (overlap_sets "
+          f"{tm['overlap_s']:.3f}, overlap_HaloPlan {tm['ovplan_s']:.3f}, "
+          f"blocks {tm['blocks_s']:.3f}, inverses {tm['factor_s']:.3f}, "
+          f"GDSW {tm['gdsw_s']:.3f}, Phi {tm['phi_s']:.3f}, coarse_inverse "
+          f"{tm['coarse_s']:.3f})", flush=True)
+    nr, pp_w, moved = _rounds(pipe)
+    print(f"pipeline shapes: n_dofs={A_sp.shape[0]} shards={n_dev} L="
+          f"{pipe.L} S={pipe.S} K={pipe.K} N_o={pipe.N_o} E_max="
+          f"{pipe.E_max} contributions_per_shard={pipe.seg_ids.shape[1]} "
+          f"exchange {nr} rounds / {pp_w} ppermute elems a shard / {moved} "
+          f"elems moved in all; pipeline_bytes={_pipe_bytes(torch, pipe)} "
+          f"prec_bytes={_stacked_bytes(torch, arrs)} "
+          f"allocated_after_solve={torch.cuda.memory_allocated() - m0} "
+          f"peak_in_first_solve={torch.cuda.max_memory_allocated() - m0}",
+          flush=True)
+    setup_s = (pc["timings"]["partition_s"] + pc["timings"]["finalize_s"]
+               + pp["precond_s"])
+    print(f"pipeline solve: gmres_iters={iters} relres={prob.last_relres:.3e}"
+          f" host_f64_relres={rel:.3e} first_solve_s={t_first:.3f} (setup "
+          f"{setup_s:.3f} inside) hopper_launches="
+          f"{dict(_cuda.launch_counts)}", flush=True)
+    _check(rel <= 1e-8, f"pipeline host residual {rel} > 1e-8")
+    if ref12 is not None and (args.n_dist, n_dev) == (ref12["n"],
+                                                      ref12["parts"]):
+        dx = float(np.abs(u - ref12["x"]).max())
+        D = _collect_csr(np, dmat)
+        da = float(abs(D - ref12["A"]).max())
+        amax = float(abs(ref12["A"]).max())
+        print(f"pipeline vs phase 12a: iters {iters} vs {ref12['iters']}, "
+              f"max|dx|={dx:.3e} max|x|={np.abs(u).max():.3e}, matrix "
+              f"max|dA|={da:.3e} max|A|={amax:.3e}", flush=True)
+        _check(abs(iters - ref12["iters"]) <= 1,
+               f"pipeline {iters} vs split {ref12['iters']} iterations")
+        _check(dx <= 1e-6 * float(np.abs(u).max()),
+               "pipeline solution against phase 12a's")
+        _check(da <= 1e-12 * amax, "pipeline matrix against phase 12a's")
+        del D
+    else:
+        print("pipeline vs phase 12a: comparison skipped (phase 12 not run "
+              "or its flags differ)", flush=True)
+
+    # two assemblies bitwise equal; the second solve reuses everything
+    a1 = pipe.assemble().ell_data
+    a2 = pipe.assemble().ell_data
+    _check(torch.equal(a1, a2), "two pipeline assemblies bitwise equal")
+    del a1, a2
+    t2 = time.perf_counter()
+    iters2 = prob.solve()
+    torch.cuda.synchronize()
+    t_second = time.perf_counter() - t2
+    _check(prob._pipe_cache is pc and prob._pipe_prec is pp
+           and iters2 == iters and torch.equal(prob.solution[0], x),
+           "second pipeline solve: cached and bitwise equal")
+    # one assembly: device and wall ms, launches
+    asm_ms = _device_ms(torch, lambda: pipe.assemble(), samples=10, calls=3)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(10):
+        pipe.assemble()
+    torch.cuda.synchronize()
+    asm_wall = (time.perf_counter() - tw) * 100.0
+    la = _launches(torch, lambda: pipe.assemble())
+    ref_s = ("" if ref12 is None else
+             f"; phase 12a host assembly {ref12['asm_s']:.3f} s + "
+             f"DistributedCsr {ref12['dmat_s']:.3f} s")
+    print(f"pipeline assembly: {asm_ms:.5f} ms (device) {asm_wall:.5f} ms "
+          f"(wall) launches={la}{ref_s}; second solve {t_second:.3f} s "
+          f"(assembly + Dirichlet + GMRES, cached), bitwise equal",
+          flush=True)
+    del prob, pc, pp, pipe, solver, dmat, build, arrs, A_sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("13a pipeline main path", t0)
+
+
+def _phase13b(torch, np, args, dev):
+    """13b: Newton Navier–Stokes through the pipeline against the split
+    shards."""
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.parallel.pipeline import merged_dof_map
+    from feddlib_tpu_torch.precond.schwarz import grow_overlap
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+
+    t0 = time.perf_counter()
+    n, n_dev = args.n_pipe_ns, args.pipe_ns_devices
+    # the host estimate of level 1 before the card holds any of it
+    prob = _cavity(torch, n, {}, dev)
+    A_sp = prob.bc_system().merge().to_scipy()
+    dom_u, dom_p = prob.variables[0][0], prob.variables[1][0]
+    dm, _ = merged_dof_map(MeshPartition(dom_p.mesh, n_dev),
+                           [(dom_u, 3), (dom_p, 1)])
+    S_est = max(len(grow_overlap(A_sp, ix, 1)) for ix in dm.partition_indices)
+    est = n_dev * S_est * S_est * 8
+    print(f"pipeline cavity: n={n} n_dofs={A_sp.shape[0]} shards={n_dev} "
+          f"level-1 estimate [{n_dev}, {S_est}, {S_est}] f64 = {est} bytes "
+          f"(host)", flush=True)
+    _check(est <= 40e9, "cavity level 1 within 40 GB (lower --n-pipe-ns)")
+    del prob, A_sp, dm
+    out = {}
+    for pipe_on in (False, True):
+        prob = _cavity(torch, n, {
+            "Use Distributed Solve": True, "Devices": n_dev,
+            "Use Device Pipeline": pipe_on,
+            "Preconditioner Type": "SchwarzTwoLevel",
+            "Convergence Tolerance": 1e-8, "Maximum Iterations": 2000}, dev)
+        solver = NonLinearSolver("Newton")
+        t1 = time.perf_counter()
+        its = solver.solve(prob)
+        torch.cuda.synchronize()
+        out[pipe_on] = (its, list(solver.linear_iters),
+                        prob.solution.concat().cpu().numpy(),
+                        time.perf_counter() - t1, prob.last_relres)
+        if pipe_on:
+            pipe = prob._pipe_cache["pipe"]
+            nd = pipe.n_distributes
+            pshape = (pipe.L, pipe.S, pipe.K, pipe.N_o, _rounds(pipe))
+        del prob, solver
+        gc.collect()
+        torch.cuda.empty_cache()
+    (its0, lin0, x0, s0, r0), (its1, lin1, x1, s1, r1) = out[False], out[True]
+    drel = float(np.abs(x1 - x0).max() / np.abs(x0).max())
+    print(f"pipeline cavity Newton: split {its0} steps, GMRES {lin0}, "
+          f"{s0:.3f} s, last relres {r0:.3e}; pipeline {its1} steps, GMRES "
+          f"{lin1}, {s1:.3f} s, last relres {r1:.3e}; max|dx|/max|x|="
+          f"{drel:.3e}; n_distributes={nd}; L S K N_o (rounds, W, moved) "
+          f"{pshape}", flush=True)
+    _check(its1 == its0 and lin1 == lin0, "cavity counts: pipeline = split")
+    _check(drel <= 1e-8, "cavity solutions: pipeline = split")
+    _check(nd == 1 + its1, "one solution upload in the Newton loop")
+    _phase("13b pipeline cavity Newton", t0)
+
+
+def _fsi_dist_run(torch, np, n, params, dev, gi):
+    """Two GE steps (or one GI step) of the 2D two-box FSI: (Newton
+    count a step, GMRES a solve, solution, seconds, problem)."""
+    from feddlib_tpu_torch.solvers import linear as lin
+
+    log, steps = [], []
+    orig = lin.LinearSolver.solve_system
+
+    def counted(self, problem, b):
+        x, it = orig(self, problem, b)
+        log.append(it)
+        return x, it
+
+    lin.LinearSolver.solve_system = counted
+    try:
+        prob = _fsi_two_box(torch, 2, n, dict(
+            {"Convergence Tolerance": 1e-10, "relNonLinTol": 1e-9,
+             "Maximum Iterations": 4000}, **params), dev)
+        t1 = time.perf_counter()
+        obs = lambda t, s: steps.append(len(log))  # noqa: E731
+        if gi:
+            prob.advance_gi(t_end=0.02, observer=obs)
+        else:
+            prob.advance(t_end=0.04, observer=obs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+    finally:
+        lin.LinearSolver.solve_system = orig
+    return ([int(v) for v in np.diff([0] + steps)], log,
+            [b.cpu().numpy() for b in prob.solution.blocks], secs, prob)
+
+
+def _fsi_compare(np, name, ser, dist):
+    worst = 0.0
+    for a, b in zip(dist[2], ser[2]):
+        worst = max(worst, float((np.abs(a - b) / (1e-9 + 1e-6 * np.abs(b)))
+                                 .max()))
+    print(f"{name}: serial Newton {ser[0]} GMRES {ser[1]} {ser[3]:.3f} s; "
+          f"distributed Newton {dist[0]} GMRES {dist[1]} {dist[3]:.3f} s; "
+          f"max |dx| / (1e-9 + 1e-6 |x|) = {worst:.3e}", flush=True)
+    _check(dist[0] == ser[0], f"{name}: Newton counts")
+    _check(worst <= 1.0, f"{name}: trajectory within rtol 1e-6, atol 1e-9")
+
+
+def _phase13cd(torch, np, args, dev):
+    """13c: the 2D GE loop with distributed FaCSI; 13d: the 2D GI step
+    distributed — each against the serial loop."""
+    t0 = time.perf_counter()
+    dist = {"Use Distributed Solve": True, "Devices": args.pipe_fsi_devices,
+            "Solid Devices": args.pipe_fsi_solid}
+    ser = _fsi_dist_run(torch, np, args.n_pipe_fsi, {
+        "Preconditioner Type": "FaCSI",
+        "Subdomains": args.pipe_fsi_devices}, dev, gi=False)[:4]
+    d = _fsi_dist_run(torch, np, args.n_pipe_fsi, dist, dev, gi=False)
+    prob = d[4]
+    cache = prob._pipe_ge
+    pipe = cache["pipe"]
+    build = cache["prec"][0]
+    sizes = prob.block_sizes()
+    r = torch.randn(pipe.n_dev, pipe.N_o, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    M = cache["solver"].operators(cache["prec"])[1]
+    apply_ms = _device_ms(torch, lambda: M(r), samples=5, calls=5)
+    torch.cuda.synchronize()
+    tw = time.perf_counter()
+    for _ in range(10):
+        M(r)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - tw) * 100.0
+    print(f"fsi distributed GE: n={args.n_pipe_fsi} n_dofs={sum(sizes)} "
+          f"shards={pipe.n_dev} (solid {args.pipe_fsi_solid}) pipeline "
+          f"L={pipe.L} S={pipe.S} K={pipe.K} N_o={pipe.N_o} rounds "
+          f"{_rounds(pipe)}; finalize {cache['finalize_s']:.3f} s, built "
+          f"{cache['builds']} time(s); FaCSI build {build.timings} S "
+          f"{build.shape['S']}, refresh s {[round(v, 3) for v in cache['prec_s']]}"
+          f"; apply {apply_ms:.3f} ms (device) {wall_ms:.3f} ms (wall); "
+          f"n_distributes={pipe.n_distributes} "
+          f"({pipe.n_distributes / sum(d[0]):.2f} a Newton step)",
+          flush=True)
+    _check(cache["builds"] == 1, "one pipeline and FaCSI build for 2 steps")
+    _fsi_compare(np, "fsi distributed GE vs serial FaCSI", ser, d[:4])
+    del d, prob, cache, pipe, build, M, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("13c fsi distributed GE", t0)
+
+    t1 = time.perf_counter()
+    gi_dist = {"Use Distributed Solve": True, "Devices": args.pipe_gi_devices,
+               "Solid Devices": args.pipe_gi_solid}
+    ser = _fsi_dist_run(torch, np, args.n_fsi_gi, {
+        "Preconditioner Type": "SchwarzOneLevel",
+        "Subdomains": args.pipe_gi_devices}, dev, gi=True)[:4]
+    d = _fsi_dist_run(torch, np, args.n_fsi_gi, gi_dist, dev, gi=True)
+    cache = d[4]._pipe_gi
+    pipe = cache["pipe"]
+    # one GI assembly (the shape blocks' jacfwd in _AD_CHUNK chunks):
+    # device ms and the peak bytes above what was allocated
+    ext = {"w": pipe.distribute_field(0, d[4].solution[0] * 0.0),
+           "gp": cache["gp_ext"], "uold": cache["uold_ext"]}
+    x = pipe.distribute(d[4].solution.concat())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gi_ms = _device_ms(torch, lambda: pipe.assemble(x=x, ext_fields=ext),
+                       samples=5, calls=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"fsi distributed GI: n={args.n_fsi_gi} n_dofs="
+          f"{sum(d[4].block_sizes())} shards={pipe.n_dev} pipeline L="
+          f"{pipe.L} S={pipe.S} K={pipe.K} N_o={pipe.N_o} E_max={pipe.E_max}"
+          f" (the shape blocks differentiated in the assembly); finalize "
+          f"{cache['finalize_s']:.3f} s; one assembly {gi_ms:.3f} ms "
+          f"(device) peak_bytes={peak}", flush=True)
+    del ext, x, cache
+    _fsi_compare(np, "fsi distributed GI vs serial", ser, d[:4])
+    del d, ser, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase("13d fsi distributed GI", t1)
+
+
+def _heat_loop(torch, np, device):
+    """The device-RHS implicit-Euler heat loop of tests/test_pipeline.py:
+    492 on Domain.structured(2, 8), 4 shards: (CG counts, u)."""
+    import math
+
+    from feddlib_tpu_torch.bc import BCBuilder
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
+    from feddlib_tpu_torch.parallel.solve import DistributedSolver
+    from feddlib_tpu_torch.parallel.spmd import DistributedCsr
+
+    dt = 0.05
+    dom = Domain.structured(2, 8, device=device)
+    bcb = BCBuilder()
+    bcb.add_bc(lambda x, t: 0.0, 1, 0, dom, "Dirichlet", 1)
+    dmask = np.asarray(bcb.dirichlet_mask(0, dom.n_nodes))
+    part = MeshPartition(dom.mesh, 4)
+    pipe = DistributedPipeline(part, [(dom, 1)], device=device)
+    pipe.add_block(0, 0, "laplace")
+    pipe.add_block(0, 0, "mass", coeff=1.0 / dt)
+    pipe.add_rhs(0, lambda x, t: torch.sin(2.0 * x[0])
+                 * math.cos(1.0 + 3.0 * t))
+    pipe.finalize()
+    dmat, _ = pipe.apply_dirichlet(pipe.assemble(), None, dmask)
+    solver = DistributedSolver(dmat, pipe.axis)
+    pm = DistributedPipeline(part, [(dom, 1)], device=device)
+    pm.add_block(0, 0, "mass", coeff=1.0 / dt)
+    pm.finalize(pipe.axis)
+    dM = pm.assemble()
+    imp = dM.plan.importer()
+    m_dist, _ = pipe.dirichlet_arrays(dmask)
+    u = torch.zeros(pipe.n_dev, pipe.N_o, dtype=torch.float64,
+                    device=pipe.device)
+    iters = []
+    for k in range(3):
+        b = pipe.assemble_rhs_device((k + 1) * dt) + DistributedCsr.\
+            local_matvec(dM.ell_data, dM.ell_cols,
+                         imp(u, dM.plan.import_arrays))
+        u, it, _ = solver.solve(torch.where(m_dist > 0, 0.0, b),
+                                method="cg", tol=1e-12, maxiter=2000)
+        iters.append(it)
+    return iters, pipe.collect(u)
+
+
+def _phase13e(torch, np, dev):
+    """13e: the small pipeline scenarios of the CPU tests on the card
+    against the same runs on the CPU."""
+    from feddlib_tpu_torch.fe.domain import Domain
+    from feddlib_tpu_torch.problems.nonlin_elasticity import \
+        NonLinElasticity
+    from feddlib_tpu_torch.problems.tpm import TPM
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    t0 = time.perf_counter()
+    pipe_opts = {"Use Distributed Solve": True, "Devices": 4,
+                 "Use Device Pipeline": True}
+
+    def laplace(d):
+        pr = _laplace2d(torch, 16, dict(pipe_opts, **{
+            "Preconditioner Type": "SchwarzTwoLevel",
+            "Convergence Tolerance": 1e-9}), d)
+        return [pr.solve()], pr.solution[0].cpu().numpy()
+
+    def tpm(d):
+        dom_p1 = Domain.structured(2, 4, device=d)
+        pr = TPM(dom_p1.p2_domain(), dom_p1, parameter_list=ParameterList(
+            "P", dict(pipe_opts, **{
+                "dt": 0.05, "Preconditioner Type": "SchwarzOneLevel",
+                "Convergence Tolerance": 1e-10,
+                "Maximum Iterations": 3000})), device=d)
+        pr.assemble()
+        pr.add_bc(lambda x, t: [0.0, 0.0], 1, 0)
+        pr.add_bc(lambda x, t: 0.0, 3, 1)
+        pr.assemble_source(lambda x: [0.0, -1.0])
+        its, solve = [], pr.solve
+        pr.solve = lambda: its.append(solve()) or its[-1]
+        pr.advance(t_end=0.1, f_ext=pr.rhs.copy())
+        return its, pr.solution.concat().cpu().numpy()
+
+    def hyper(d):
+        pr = NonLinElasticity(Domain.structured(2, 4, device=d),
+                              parameter_list=ParameterList("P", dict(
+                                  pipe_opts, **{
+                                      "E": 5.0, "Poisson Ratio": 0.3,
+                                      "Material Model": "Neo-Hooke",
+                                      "Preconditioner Type":
+                                          "SchwarzOneLevel",
+                                      "Convergence Tolerance": 1e-11,
+                                      "Maximum Iterations": 3000,
+                                      "relNonLinTol": 1e-9,
+                                      "MaxNonLinIts": 15})), device=d)
+        pr.assemble()
+        pr.add_bc(lambda x, t: [0.0, 0.0], 1, 0)
+        pr.assemble_source(lambda x: [0.0, -0.4])
+        s = NonLinearSolver("Newton")
+        its = s.solve(pr)
+        return [its] + list(s.linear_iters), pr.solution[0].cpu().numpy()
+
+    cases = [("Laplace 2D 16 cells, 4 shards", laplace),
+             ("device-RHS heat loop", lambda d: _heat_loop(torch, np, d)),
+             ("TPM consolidation", tpm), ("hyperelastic Newton", hyper)]
+    for name, fn in cases:
+        (it_c, x_c), (it_h, x_h) = fn(dev), fn(torch.device("cpu"))
+        dx = float(np.abs(x_c - x_h).max())
+        print(f"pipeline {name} cuda vs cpu: counts {it_c} vs {it_h}, "
+              f"max|dx|={dx:.3e} max|x|={np.abs(x_h).max():.3e}", flush=True)
+        _check(list(it_c) == list(it_h)
+               and dx <= 1e-9 * float(np.abs(x_h).max()),
+               f"pipeline {name} cuda vs cpu")
+    _phase("13e pipeline card vs cpu", t0)
+
+
+def _phase13(torch, np, args, dev, ref12):
+    """The device-resident pipeline (see the module docstring)."""
+    t0 = time.perf_counter()
+    _phase13a(torch, np, args, dev, ref12)
+    _phase13b(torch, np, args, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase13cd(torch, np, args, dev)
+    _phase13e(torch, np, dev)
+    _phase("13 pipeline", t0)
 
 
 def _parser():
@@ -1787,6 +2268,29 @@ def _parser():
                     help="shards of the distributed solve")
     ap.add_argument("--n-fsi-gi", type=int, default=32,
                     help="cells per side of each 2D FSI box (GI)")
+    ap.add_argument("--n-pipe-ns", type=int, default=12,
+                    help="cells per side of phase 13b's cavity")
+    ap.add_argument("--pipe-ns-devices", type=int, default=64,
+                    help="shards of phase 13b's cavity")
+    # at phase 11b's 64 cells the eight solid shards' FaCSI subdomains are
+    # 4,690 wide: their host inverses took 28-32 s a Newton step on the
+    # card's host, 181 s for the two steps (run 10a); at 32, 1,200 wide
+    ap.add_argument("--n-pipe-fsi", type=int, default=32,
+                    help="cells per side of each 2D FSI box (phase 13c)")
+    ap.add_argument("--pipe-fsi-devices", type=int, default=32,
+                    help="shards of phase 13c's GE loop (and serial FaCSI "
+                         "subdomains)")
+    ap.add_argument("--pipe-fsi-solid", type=int, default=8,
+                    help="solid shards of phase 13c")
+    ap.add_argument("--pipe-gi-devices", type=int, default=16,
+                    help="shards of phase 13d's GI step (and serial "
+                         "subdomains)")
+    ap.add_argument("--pipe-gi-solid", type=int, default=4,
+                    help="solid shards of phase 13d")
+    ap.add_argument("--only", choices=["12,13"], default=None,
+                    help="after the build run phases 12 and 13 alone "
+                         "(phase 12 without its phase 7 comparison; no "
+                         "kernel entries)")
     return ap
 
 
@@ -1827,6 +2331,17 @@ def main(argv=None):
             print("  " + line.strip())
     print(f"kernels built: {lib_path}")
     _phase("1 build", t0)
+    if args.only == "12,13":
+        ref12 = _phase12(torch, np, args, dev, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _phase13(torch, np, args, dev, ref12)
+        print(json.dumps({"kernels": []}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # -- phase 2: main path ---------------------------------------------------
     t0 = time.perf_counter()
@@ -2391,7 +2906,10 @@ def main(argv=None):
     _phase11(torch, np, args, dev, hold_b123)
     gc.collect()
     torch.cuda.empty_cache()
-    _phase12(torch, np, args, dev, ref7)
+    ref12 = _phase12(torch, np, args, dev, ref7)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase13(torch, np, args, dev, ref12)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,10 +18,17 @@ from feddlib_tpu_torch.utils.device import resolve_device
 
 
 class BlockVector:
-    """List of per-block device vectors."""
+    """List of per-block device vectors.
+
+    A vector may carry a `_dist_mirror = (pipe, shards)` attachment: the
+    same values as the owned shards [n_dev, N_o] of a DistributedPipeline's
+    dof map.  axpy / scale / copy propagate it, so Newton and time updates
+    keep the shards on the device and the distributed solve does not
+    upload the solution again; a block write (`v[i] = ...`) drops it."""
 
     def __init__(self, blocks: List[torch.Tensor]):
         self.blocks = list(blocks)
+        self._dist_mirror = None
 
     @classmethod
     def zeros(cls, sizes, dtype=torch.float64, device="cuda"):
@@ -37,6 +44,7 @@ class BlockVector:
 
     def __setitem__(self, i, v):
         self.blocks[i] = v
+        self._dist_mirror = None  # the shards no longer hold these values
 
     def __len__(self):
         return len(self.blocks)
@@ -55,14 +63,24 @@ class BlockVector:
         return sum(torch.dot(a, b) for a, b in zip(self.blocks, other.blocks))
 
     def axpy(self, alpha, x: "BlockVector") -> "BlockVector":
-        return BlockVector([a + alpha * b
-                            for a, b in zip(self.blocks, x.blocks)])
+        out = BlockVector([a + alpha * b
+                           for a, b in zip(self.blocks, x.blocks)])
+        ma, mb = self._dist_mirror, getattr(x, "_dist_mirror", None)
+        if ma is not None and mb is not None and ma[0] is mb[0]:
+            out._dist_mirror = (ma[0], ma[1] + alpha * mb[1])
+        return out
 
     def scale(self, alpha) -> "BlockVector":
-        return BlockVector([alpha * b for b in self.blocks])
+        out = BlockVector([alpha * b for b in self.blocks])
+        if self._dist_mirror is not None:
+            out._dist_mirror = (self._dist_mirror[0],
+                                alpha * self._dist_mirror[1])
+        return out
 
     def copy(self) -> "BlockVector":
-        return BlockVector(list(self.blocks))
+        out = BlockVector(list(self.blocks))
+        out._dist_mirror = self._dist_mirror
+        return out
 
 
 class BlockMatrix:

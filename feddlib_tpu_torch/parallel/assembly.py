@@ -1,7 +1,7 @@
 """Distributed FE assembly: each shard assembles its own elements and the
 ghost-row contributions are exported to the owning shard — counterpart of
 feddlib_tpu/parallel/assembly.py (the scalar-Laplace reference of the
-exchange plan; the general device pipeline is ROADMAP A10b).
+exchange plan; the general device pipeline is parallel/pipeline.py).
 
 All plans are static host-built index maps; the device work is
 
@@ -23,15 +23,35 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch.fe import assembly as asm
-from feddlib_tpu_torch.la.csr import SparsityPattern, scatter_sum
+from feddlib_tpu_torch.la.csr import (SparsityPattern, scatter_sum,
+                                     segment_sum_sorted)
 from feddlib_tpu_torch.mesh.partition import MeshPartition
 from feddlib_tpu_torch.parallel.spmd import DeviceAxis, _pad_stack
 
 
+def stacked_segment_plan(seg, n_seg: int, device):
+    """The fixed summation order of `_stacked_segment_sum` for a static
+    seg [n_dev, m] (host or device), sorted once on `device`: (order,
+    lengths) of the stacked targets.  None on the CPU, whose sum is
+    `index_add_`."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return None
+    seg = torch.as_tensor(seg, dtype=torch.int64, device=device)
+    n = seg.shape[0]
+    idx = (seg + n_seg * torch.arange(n, device=device)[:, None]).reshape(-1)
+    return (torch.argsort(idx, stable=True),
+            torch.bincount(idx, minlength=n * n_seg))
+
+
 def _stacked_segment_sum(vals: torch.Tensor, seg: torch.Tensor,
-                         n_seg: int) -> torch.Tensor:
-    """Per-shard segment sums: vals, seg [n_dev, m] → [n_dev, n_seg]."""
+                         n_seg: int, plan=None) -> torch.Tensor:
+    """Per-shard segment sums: vals, seg [n_dev, m] → [n_dev, n_seg], in a
+    fixed order on the card (`la.csr.scatter_sum`, or the `plan` of
+    `stacked_segment_plan` for the same seg)."""
     n = vals.shape[0]
+    if plan is not None and vals.device.type != "cpu":
+        return segment_sum_sorted(vals.reshape(-1), *plan).view(n, n_seg)
     off = n_seg * torch.arange(n, device=vals.device)[:, None]
     return scatter_sum(vals.reshape(-1), (seg + off).reshape(-1),
                        n * n_seg).view(n, n_seg)

@@ -8,9 +8,9 @@ the shard axis:
 - unique→repeated import (halo exchange): neighbour-wise — the partition
   neighbour graph is edge-coloured on the host and each colour becomes one
   `ppermute` round moving only that pair's boundary values.  The
-  all_gather plan (`import_ghosts`, `export_add`) is kept on the host and
-  uploaded only by a caller that runs it (the assembly pipeline's one-shot
-  setup, ROADMAP A10b);
+  all_gather plan (`import_ghosts`, `export_add`) is kept on the host for
+  a caller that runs it; no solve or assembly path of the package does
+  (nor of the JAX package, whose `matvec_fn` is its one user);
 - repeated→unique export/add: the same rounds reversed, ghost
   contributions added into owner rows (Tpetra Export, Add);
 - global reductions are a `psum`.
@@ -350,12 +350,16 @@ class DistributedCsr:
     def from_parts(cls, unique_map: IndexMap, col_gids: List[np.ndarray],
                    ell_cols, ell_data: torch.Tensor, K: int,
                    plan: Optional["HaloPlan"] = None,
-                   row_lens: Optional[np.ndarray] = None) -> "DistributedCsr":
+                   row_lens: Optional[np.ndarray] = None,
+                   ell_cols_host: Optional[np.ndarray] = None
+                   ) -> "DistributedCsr":
         """Construct from per-shard data: col_gids[p] the local column map
         (owned ++ ghost gids); ell_cols [n_dev, K, N_o] column-map-local;
         ell_data [n_dev, K, N_o] the values (on the device they run on);
         row_lens [n_dev, N_o] the nonzeros of each row (needed by the
-        symbolic locator of the preconditioner setup)."""
+        symbolic locator of the preconditioner setup).  An int64 ell_cols
+        already on that device is taken as it is, with its host copy
+        `ell_cols_host` (a reassembly uploads no plan)."""
         obj = cls.__new__(cls)
         obj.n_global = unique_map.n_global
         obj.unique_map = unique_map
@@ -365,10 +369,14 @@ class DistributedCsr:
         obj.plan = (plan if plan is not None
                     else HaloPlan(unique_map, col_gids, device=obj.device))
         obj.col_gids = col_gids
-        obj._ell_cols_host = np.asarray(
-            ell_cols.cpu() if torch.is_tensor(ell_cols) else ell_cols,
-            np.int64)
-        obj.ell_cols = _dev_index(obj._ell_cols_host, obj.device)
+        on_dev = (torch.is_tensor(ell_cols) and ell_cols.device == obj.device
+                  and ell_cols.dtype == torch.int64)
+        if ell_cols_host is None:
+            ell_cols_host = (ell_cols.cpu() if torch.is_tensor(ell_cols)
+                             else ell_cols)
+        obj._ell_cols_host = np.asarray(ell_cols_host, np.int64)
+        obj.ell_cols = (ell_cols if on_dev
+                        else _dev_index(obj._ell_cols_host, obj.device))
         obj.ell_data = ell_data
         obj.row_lens = row_lens
         obj._locator = None

@@ -1,5 +1,5 @@
-"""Monolithic fluid–structure interaction, serial — counterpart of
-feddlib_tpu/problems/fsi.py without its device pipelines.
+"""Monolithic fluid–structure interaction — counterpart of
+feddlib_tpu/problems/fsi.py.
 
 Geometry-explicit (GE) formulation with conforming interface meshes.
 Unknowns per time step  x = (u, p, d, λ):
@@ -21,12 +21,22 @@ with the BDF fluid mass and the Newmark solid → update the histories.
 
 The geometry-implicit (GI) loop `advance_gi` adds the mesh displacement g
 as a fifth field, with the shape-derivative blocks of
-fe/shape_derivatives.py.  The distributed pipelines of the JAX package
-('Use Distributed Solve') are not ported yet (ROADMAP.md A10b).
+fe/shape_derivatives.py.
+
+With 'Use Distributed Solve' ('Devices', 'Solid Devices') every Newton
+Jacobian of either loop is assembled on the shard axis by a multi-mesh
+DistributedPipeline (parallel/pipeline.py: the fluid on shards [0, nf),
+the solid on [nf, n_dev), λ on shard 0, the interface identities as
+constant couplings), no global matrix formed, and solved with the
+distributed FaCSI (precond/facsi.py) through `_distributed_solve_hook`.
+The pipeline is built once per dt: moved meshes enter as vertex
+coordinates, the solution rides its shard mirror across Newton steps.
 """
 
 from __future__ import annotations
 
+import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -54,14 +64,6 @@ def _interface_identity(n_rows: int, n_cols: int, rows: np.ndarray,
     m.assemble(torch.full((len(rows),), scale, dtype=torch.float64,
                           device=m.device))
     return m
-
-
-def _refuse_distributed(pl) -> None:
-    if bool(pl.get("Use Distributed Solve", False)):
-        raise NotImplementedError(
-            "FSI with 'Use Distributed Solve' (the multi-mesh device "
-            "pipeline and distributed FaCSI) is not ported yet "
-            "(ROADMAP.md A10b)")
 
 
 class FSI(NonLinearProblem):
@@ -237,17 +239,230 @@ class FSI(NonLinearProblem):
         out[self._t_rows] = vals
         return out
 
-    def _solve_step(self, solver, t_new, residual, reassemble) -> None:
+    def _solve_step(self, solver, t_new, residual, reassemble,
+                    distributed: bool = False) -> None:
         """Newton on the step's residual and reassembly, swapped onto the
-        instance for the step (NonLinearSolver calls them through it)."""
+        instance for the step (NonLinearSolver calls them through it);
+        `distributed` routes its linear solves to `_fsi_dist_solve`."""
         base_res, base_rea = self.calculate_residual, self.reassemble
         self.calculate_residual = residual
         self.reassemble = reassemble
+        if distributed:
+            self._distributed_solve_hook = self._fsi_dist_solve
         try:
             solver.solve(self, t_new)
         finally:
             self.calculate_residual = base_res
             self.reassemble = base_rea
+            self._distributed_solve_hook = None
+
+    # -- distributed device-resident system ----------------------------------
+    def _pipeline_parts(self, n_dev: int, solid_devices: Optional[int]):
+        """(fluid partition, solid partition, nf) over the shard axis: the
+        fluid mesh on shards [0, nf), the solid on [nf, n_dev)."""
+        from feddlib_tpu_torch.mesh.partition import MeshPartition
+
+        dom_u, dom_d = self.variables[0][0], self.variables[2][0]
+        ns = solid_devices if solid_devices is not None else max(
+            1, n_dev // 4)
+        nf = n_dev - ns
+        if nf < 1 or ns < 1:
+            raise ValueError("need at least one fluid and one solid device")
+        return (MeshPartition((dom_u.parent_p1 or dom_u).mesh, nf),
+                MeshPartition((dom_d.parent_p1 or dom_d).mesh, ns), nf)
+
+    def _add_ge_blocks(self, pipe) -> None:
+        """The GE four-field Jacobian's element blocks and couplings."""
+        dim = self.dim
+        beta0_dt = 1.0 / self.dt
+        newmark_m = 1.0 / (self.newmark_beta * self.dt * self.dt)
+        # fluid momentum: ρ/dt M + A + N(ρ(u−w)) + W(ρu) − ρ(∇·w)M̃
+        pipe.add_block(0, 0, "mass", coeff=self.density_f * beta0_dt,
+                       dofs_per_node=dim)
+        pipe.add_block(0, 0, "laplace_vec", viscosity=self.viscosity)
+        # N(ρ(u−w)) split by linearity into N(ρu) (the solution shards, no
+        # upload a Newton step) − N(ρw) (w changes once a time step)
+        pipe.add_block(0, 0, "advection", coeff=self.density_f)
+        pipe.add_block(0, 0, "advection", coeff=-self.density_f,
+                       field_src="ext:w")
+        pipe.add_block(0, 0, "advection_in_u", coeff=self.density_f)
+        pipe.add_block(0, 0, "ale_divergence", coeff=-self.density_f,
+                       field_src="ext:w")
+        pipe.add_block(0, 1, "divergence_T")
+        pipe.add_block(1, 0, "divergence")
+        # solid: Newmark mass + material tangent
+        pipe.add_block(2, 2, "mass", coeff=self.density_s * newmark_m,
+                       dofs_per_node=dim)
+        if self.material == "linear":
+            pipe.add_block(2, 2, "lin_elasticity", mu=self.mu_s,
+                           lam=self.lam_s)
+        else:
+            pipe.add_block(2, 2, "hyperelastic", material=self.material,
+                           mat_params=self.params_s)
+
+    def _add_couplings(self, pipe) -> None:
+        """The interface identities C1ᵀ, C1, C3ᵀ, C2 as constant entries."""
+        ones = np.ones(len(self._iface_rows))
+        pipe.add_coo_block(0, 3, self._uf_cols, self._iface_rows, ones)
+        pipe.add_coo_block(3, 0, self._iface_rows, self._uf_cols, ones)
+        pipe.add_coo_block(2, 3, self._ds_cols, self._iface_rows, -ones)
+        pipe.add_coo_block(3, 2, self._iface_rows, self._ds_cols,
+                           -ones / self.dt)
+
+    def build_pipeline(self, n_dev: int, solid_devices: Optional[int] = None,
+                       axis=None):
+        """Multi-mesh DistributedPipeline of the GE four-field Jacobian:
+        fluid (u P2, p P1) on shards [0, nf), solid (d P2) on [nf, n_dev),
+        λ owned by shard 0; the interface identities enter as constant
+        couplings, the (3,2) factor −1/dt baked into the plan (rebuilt if
+        dt changes)."""
+        from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
+        from feddlib_tpu_torch.parallel.spmd import DeviceAxis
+
+        dom_u, dom_p = self.variables[0][0], self.variables[1][0]
+        dom_d = self.variables[2][0]
+        dim = self.dim
+        part_f, part_s, nf = self._pipeline_parts(n_dev, solid_devices)
+        pipe = DistributedPipeline(
+            part_f, [(dom_u, dim, 0), (dom_p, 1, 0), (dom_d, dim, 1),
+                     {"extra": self.n_lam, "owner": 0}],
+            aux_parts=[{"part": part_s, "range": (nf, n_dev)}])
+        self._add_ge_blocks(pipe)
+        self._add_couplings(pipe)
+        pipe.finalize(axis or DeviceAxis(n_dev, self.device))
+        return pipe
+
+    def assemble_distributed(self, pipe, w=None):
+        """One device-resident GE Jacobian (mode 'Newton') at the current
+        solution, no global matrix formed.  `w` is the mesh velocity on
+        the fluid velocity space (zeros if None)."""
+        n_u = self.variables[0][0].n_dofs(self.dim)
+        ext = {"w": pipe.distribute_field(
+            0, np.zeros(n_u) if w is None else w)}
+        x = pipe.distribute(self.solution.concat()
+                            if self.solution is not None
+                            else np.zeros(int(pipe.offsets[-1])))
+        return pipe.assemble(x=x, ext_fields=ext)
+
+    def _dist_devices(self):
+        pl = self.parameter_list
+        n_default = (torch.cuda.device_count() if self.device.type == "cuda"
+                     else torch.cpu.device_count())
+        sdev = pl.get("Solid Devices", None)
+        return (int(pl.get("Devices", n_default)),
+                None if sdev is None else int(sdev))
+
+    def _ensure_pipeline(self, n_dev: int, solid_devices: Optional[int]):
+        """The cached multi-mesh pipeline of the distributed GE loop: the
+        plans are coordinate-independent (one build serves every mesh
+        move); a new dt rebuilds (its −1/dt couplings are plan
+        constants)."""
+        key = (n_dev, solid_devices, self.dt)
+        cache = getattr(self, "_pipe_ge", None)
+        if cache is None or cache["key"] != key:
+            t0 = time.perf_counter()
+            pipe = self.build_pipeline(n_dev, solid_devices=solid_devices)
+            cache = {"key": key, "pipe": pipe, "prec": None, "solver": None,
+                     "locator": None, "builds": 0,
+                     "finalize_s": time.perf_counter() - t0}
+            self._pipe_ge = cache
+        return cache
+
+    def _dist_finish(self, cache, dmat) -> None:
+        """The shared tail of the distributed reassemblies: Dirichlet rows,
+        the plan-static locator, the FaCSI build or refresh, the solver's
+        new values."""
+        from feddlib_tpu_torch.parallel.solve import DistributedSolver
+        from feddlib_tpu_torch.precond.facsi import distributed_facsi
+
+        pipe = cache["pipe"]
+        dmat, _ = pipe.apply_dirichlet(dmat, None,
+                                       self.merged_dirichlet_mask())
+        if cache["locator"] is None:
+            cache["locator"] = dmat.locator()
+        else:  # the symbolic pattern is plan-static
+            dmat._locator = cache["locator"]
+        pl = self.parameter_list
+        t0 = time.perf_counter()
+        if cache["prec"] is None:
+            cache["prec"] = distributed_facsi(
+                dmat, pipe.offsets, self._uf_cols, self._ds_cols,
+                self._iface_rows, self.dt,
+                overlap=int(pl.get("Overlap", 1)))
+            cache["builds"] += 1
+        elif not bool(pl.get("Reuse Preconditioner", False)):
+            build, _ = cache["prec"]
+            cache["prec"] = (build, build.refresh(dmat))
+        cache.setdefault("prec_s", []).append(time.perf_counter() - t0)
+        if cache["solver"] is None:
+            cache["solver"] = DistributedSolver(dmat, pipe.axis)
+        else:
+            cache["solver"].dmat = dmat  # fresh values, identical plans
+
+    def _solution_shards(self, pipe):
+        """The solution's shards: its mirror, else one upload."""
+        mir = self.solution._dist_mirror
+        if mir is not None and mir[0] is pipe:
+            return mir[1]
+        x = pipe.distribute(self.solution.concat())
+        self.solution._dist_mirror = (pipe, x)
+        return x
+
+    def _dist_reassemble(self, cache, w: torch.Tensor) -> None:
+        """Device-resident GE Jacobian at the current Newton iterate on the
+        moved (ALE) fluid mesh; the serial merged system is never
+        formed."""
+        pipe = cache["pipe"]
+        dom_u = self.variables[0][0]
+        # w and the moved coordinates change once a TIME step
+        if cache.get("w_obj") is not w:
+            cache["w_ext"] = {"w": pipe.distribute_field(0, w)}
+            cache["w_obj"] = w
+            cache["vc"] = pipe.mesh_vert_coords(0, dom_u.mesh.points)
+        dmat = pipe.assemble(x=self._solution_shards(pipe),
+                             ext_fields=cache["w_ext"],
+                             vert_coords={0: cache["vc"]})
+        self._dist_finish(cache, dmat)
+
+    def _dist_reassemble_gi(self, cache, gp_vec, u_old) -> None:
+        """Device-resident five-field GI Jacobian at the current Newton
+        iterate: the fluid blocks on the moved (ref + g) coordinates, the
+        shape blocks differentiated around the reference configuration —
+        no serial system, no host mesh move."""
+        pipe = cache["pipe"]
+        dom_u = self.variables[0][0]
+        if cache.get("step_obj") is not gp_vec:  # per-time-step fields
+            cache["gp_ext"] = pipe.distribute_field(4, gp_vec)
+            cache["uold_ext"] = pipe.distribute_field(0, u_old)
+            cache["step_obj"] = gp_vec
+        g = self.solution[4]
+        ext = {"w": pipe.distribute_field(0, (g - gp_vec) / self.dt),
+               "gp": cache["gp_ext"], "uold": cache["uold_ext"]}
+        vc = pipe.mesh_vert_coords(
+            0, dom_u.mesh.ref_points + g.cpu().numpy().reshape(-1, self.dim))
+        dmat = pipe.assemble(x=self._solution_shards(pipe), ext_fields=ext,
+                             vert_coords={0: vc})
+        self._dist_finish(cache, dmat)
+
+    def _fsi_dist_solve(self, b):
+        """The `_distributed_solve_hook` of Newton's linear solve: J δ = b
+        by the shard-axis GMRES with the distributed FaCSI."""
+        cache = self._dist_active
+        pipe = cache["pipe"]
+        pl = self.parameter_list
+        tol = float(pl.get("Convergence Tolerance", 1e-8))
+        x, iters, rel = cache["solver"].solve(
+            pipe.distribute(b.concat()), method="gmres", tol=tol,
+            maxiter=int(pl.get("Maximum Iterations", 1000)),
+            restart=int(pl.get("Num Blocks", 200)), precond=cache["prec"])
+        self.last_relres = rel
+        if rel > tol:
+            warnings.warn(f"distributed FSI solve: relres={rel}")
+        out = BlockVector.split(pipe.gather(x), self.block_sizes())
+        # δ carries its shards: the Newton update (BlockVector.axpy) moves
+        # them into the solution's mirror, no upload
+        out._dist_mirror = (pipe, x)
+        return out, iters
 
     # -- time loop (GE) -------------------------------------------------------
     def advance(self, t_end: float, source_f: Optional[Callable] = None,
@@ -255,7 +470,6 @@ class FSI(NonLinearProblem):
                 newton_method: str = "Newton") -> None:
         from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
 
-        _refuse_distributed(self.parameter_list)
         dom_u = self.variables[0][0]
         dim, dt = self.dim, self.dt
         self.init_vectors()
@@ -264,6 +478,16 @@ class FSI(NonLinearProblem):
         self.nonlinear_solver = solver
         if self.g_prev is None:
             self.g_prev = np.zeros((dom_u.n_nodes, dim))
+        # distributed: every Newton Jacobian assembles on the shard axis
+        # through the multi-mesh pipeline and solves with distributed FaCSI
+        dist_cache = None
+        if bool(self.parameter_list.get("Use Distributed Solve", False)):
+            if newton_method != "Newton":
+                raise ValueError("the distributed FSI pipeline registers "
+                                 "the Newton linearisation W(u); use "
+                                 "newton_method='Newton'")
+            dist_cache = self._ensure_pipeline(*self._dist_devices())
+            self._dist_active = dist_cache
 
         while t < t_end - 1e-12:
             t_new = t + dt
@@ -314,9 +538,13 @@ class FSI(NonLinearProblem):
                     r, prob.solution, tt)
 
             def reassemble(mode="Newton"):
-                prob._build_system(mode, w, 1.0 / dt, newmark_m, P=Pmat)
+                if dist_cache is not None:
+                    prob._dist_reassemble(dist_cache, w)
+                else:
+                    prob._build_system(mode, w, 1.0 / dt, newmark_m, P=Pmat)
 
-            self._solve_step(solver, t_new, residual, reassemble)
+            self._solve_step(solver, t_new, residual, reassemble,
+                             distributed=dist_cache is not None)
 
             # 4) Newmark updates
             self._solid_update(d_old, v_old, a_old, newmark_m)
@@ -370,7 +598,6 @@ class FSI(NonLinearProblem):
             _fluid_elem_residual, assemble_shape_derivative_blocks)
         from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
 
-        _refuse_distributed(self.parameter_list)
         dom_u, dom_p = self.variables[0][0], self.variables[1][0]
         dim, dt = self.dim, self.dt
         dev = self.device
@@ -403,6 +630,22 @@ class FSI(NonLinearProblem):
             self.g_prev = np.zeros((dom_u.n_nodes, dim))
         t = 0.0
         prob = self
+        # distributed: five-field GI Jacobians assemble on the shard axis
+        # through the GI pipeline; the solves ride five-field FaCSI
+        dist_cache = None
+        if bool(self.parameter_list.get("Use Distributed Solve", False)):
+            n_dev, sdev = self._dist_devices()
+            key = ("gi", n_dev, sdev, self.dt)
+            dist_cache = getattr(self, "_pipe_gi", None)
+            if dist_cache is None or dist_cache["key"] != key:
+                t0 = time.perf_counter()
+                dist_cache = {"key": key, "prec": None, "solver": None,
+                              "locator": None, "builds": 0,
+                              "pipe": self.build_pipeline_gi(
+                                  n_dev, solid_devices=sdev)}
+                dist_cache["finalize_s"] = time.perf_counter() - t0
+                self._pipe_gi = dist_cache
+            self._dist_active = dist_cache
 
         def fluid_residual(u, p, g, gp_vec, u_old):
             fields = [v.reshape(-1, dim)[conn_u] for v in (u, g, gp_vec,
@@ -444,6 +687,9 @@ class FSI(NonLinearProblem):
                     r, prob.solution, tt)
 
             def reassemble(mode="Newton"):
+                if dist_cache is not None:
+                    prob._dist_reassemble_gi(dist_cache, gp_vec, u_old)
+                    return
                 u, p, d, lam, g = (prob.solution[i] for i in range(5))
                 # move the fluid mesh to the CURRENT geometry iterate
                 dom_u.mesh.move(g.cpu().numpy().reshape(-1, dim))
@@ -463,13 +709,73 @@ class FSI(NonLinearProblem):
                 S.add_block(4, 2, C4)
                 prob._prec_stale = True
 
-            self._solve_step(solver, t_new, residual, reassemble)
+            self._solve_step(solver, t_new, residual, reassemble,
+                             distributed=dist_cache is not None)
 
             self._solid_update(d_old, v_old, a_old, newmark_m)
             self.g_prev = self.solution[4].cpu().numpy().reshape(-1, dim)
             if observer:
                 observer(t_new, self.solution)
             t = t_new
+
+    def build_pipeline_gi(self, n_dev: int,
+                          solid_devices: Optional[int] = None, axis=None):
+        """Multi-mesh DistributedPipeline of the five-field GI Jacobian:
+        the GE blocks, the shape-derivative kinds (0,4) / (1,4)
+        (∂(fluid)/∂(mesh) differentiated inside the assembly), the
+        reference-configuration geometry block (4,4) with built-in
+        Dirichlet rows, and the (4,2) interface coupling g = d."""
+        from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
+        from feddlib_tpu_torch.parallel.spmd import DeviceAxis
+
+        self._gi = True
+        dom_u, dom_p = self.variables[0][0], self.variables[1][0]
+        dom_d = self.variables[2][0]
+        dim = self.dim
+        if dom_u.mesh.ref_points is None:
+            dom_u.mesh.save_reference_configuration()
+        part_f, part_s, nf = self._pipeline_parts(n_dev, solid_devices)
+        pipe = DistributedPipeline(
+            part_f, [(dom_u, dim, 0), (dom_p, 1, 0), (dom_d, dim, 1),
+                     {"extra": self.n_lam, "owner": 0}, (dom_u, dim, 0)],
+            aux_parts=[{"part": part_s, "range": (nf, n_dev)}])
+        self._add_ge_blocks(pipe)
+        # shape-derivative blocks (differentiated around the REFERENCE
+        # configuration; fields u, p, g, g_prev, u_old)
+        for i, kind in ((0, "shape_u"), (1, "shape_p")):
+            pipe.add_block(i, 4, kind, viscosity=self.viscosity,
+                           density=self.density_f, dt=self.dt,
+                           mass_coef=1.0 / self.dt)
+        # geometry block: interior Laplace on the reference configuration;
+        # the Dirichlet rows (outer boundary g = 0, interface g = d) enter
+        # as zero row weights, unit diagonals and the (4,2) coupling
+        g_dir = self._gi_g_dirichlet()
+        pipe.add_block(4, 4, "laplace_vec", geom="ref",
+                       row_weights=(~g_dir).astype(np.float64))
+        diag = np.flatnonzero(g_dir)
+        pipe.add_coo_block(4, 4, diag, diag, np.ones(len(diag)))
+        pipe.add_coo_block(4, 2, self._uf_cols, self._ds_cols,
+                           -np.ones(len(self._uf_cols)))
+        self._add_couplings(pipe)
+        pipe.finalize(axis or DeviceAxis(n_dev, self.device))
+        return pipe
+
+    def assemble_distributed_gi(self, pipe, gp_vec, u_old):
+        """One device-resident GI Jacobian at the current five-field
+        solution: the fluid blocks on the MOVED coordinates (ref + g), the
+        shape blocks around the reference configuration."""
+        dom_u = self.variables[0][0]
+        g = torch.as_tensor(self.solution[4], dtype=torch.float64)
+        gp = torch.as_tensor(gp_vec, dtype=torch.float64, device=g.device)
+        ext = {"w": pipe.distribute_field(0, (g - gp) / self.dt),
+               "gp": pipe.distribute_field(4, gp),
+               "uold": pipe.distribute_field(0, u_old)}
+        x = pipe.distribute(self.solution.concat())
+        ref = (dom_u.mesh.ref_points if dom_u.mesh.ref_points is not None
+               else dom_u.mesh.points)
+        vc = pipe.mesh_vert_coords(
+            0, ref + g.cpu().numpy().reshape(-1, self.dim))
+        return pipe.assemble(x=x, ext_fields=ext, vert_coords={0: vc})
 
     def block_sizes(self):
         base = [self.variables[0][0].n_dofs(self.dim),

@@ -47,6 +47,21 @@ class Geometry(Problem):
         self.system.add_block(0, 0, K)
         self.init_vectors()
 
+    def pipeline_blocks(self):
+        """The harmonic-extension kinds of the device pipeline."""
+        dom = self.variables[0][0]
+        if self.model == "Elasticity":
+            mu, lam = ops.lame_parameters(
+                float(self.parameter_list.get("E", 1.0)),
+                float(self.parameter_list.get("Poisson Ratio", 0.3)))
+            return [(0, 0, "lin_elasticity", {"mu": mu, "lam": lam})]
+        if self.distances is not None:
+            nv = dom.mesh.vertices_per_element
+            d_elem = self.distances[dom.mesh.elements[:, :nv]].mean(axis=1)
+            return [(0, 0, "laplace_vec_scaled",
+                     {"elem_data": 1.0 / np.maximum(d_elem, 1e-3)})]
+        return [(0, 0, "laplace_vec", {})]
+
     def _assemble_scaled_laplace(self, dom: Domain) -> CsrMatrix:
         """Harmonic extension with stiffness ∝ 1/dist(x, Γ): elements near
         the interface move almost rigidly, the far ones absorb the

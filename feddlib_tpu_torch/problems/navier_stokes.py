@@ -35,6 +35,7 @@ class NavierStokes(NonLinearProblem):
         self.BT = None
         self.C = None
         self.source = None
+        self._last_mode = "FixedPoint"
 
     def assemble(self) -> None:
         dom_u, dom_p = self.variables[0][0], self.variables[1][0]
@@ -55,6 +56,7 @@ class NavierStokes(NonLinearProblem):
         self._prec_stale = True
 
     def reassemble(self, mode: str = "Newton") -> None:
+        self._last_mode = mode
         dom_u = self.variables[0][0]
         u = self.solution[0] if self.solution is not None else None
         if u is None:
@@ -65,6 +67,21 @@ class NavierStokes(NonLinearProblem):
             Auu = Auu.add(ops.assemble_advection_in_u(dom_u,
                                                       u * self.density))
         self._build_system(Auu)
+
+    def pipeline_blocks(self):
+        """The current block composition for the device-resident
+        distributed pipeline: it follows the FixedPoint / Newton state of
+        the last reassembly, so the pipeline's Jacobian is the serial
+        one."""
+        dom_u, dom_p = self.variables[0][0], self.variables[1][0]
+        blocks = [(0, 0, "laplace_vec", {"viscosity": self.viscosity}),
+                  (0, 0, "advection", {"coeff": self.density})]
+        if self._last_mode == "Newton":
+            blocks.append((0, 0, "advection_in_u", {"coeff": self.density}))
+        blocks += [(0, 1, "divergence_T", {}), (1, 0, "divergence", {})]
+        if dom_u.fe_type == dom_p.fe_type:
+            blocks.append((1, 1, "bd_stab", {}))
+        return blocks
 
     def assemble_source(self, f: Callable) -> None:
         """Volume force f(x), one value per velocity component."""

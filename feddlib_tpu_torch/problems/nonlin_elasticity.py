@@ -78,6 +78,11 @@ class NonLinElasticity(NonLinearProblem):
         self.init_vectors()
         self.reassemble("Newton")
 
+    def pipeline_blocks(self):
+        """The consistent-tangent kind of the device pipeline."""
+        return [(0, 0, "hyperelastic",
+                 {"material": self.material, "mat_params": self.params})]
+
     def reassemble(self, mode: str = "Newton") -> None:
         dom = self.variables[0][0]
         dim = dom.dim

@@ -36,6 +36,16 @@ class Stokes(Problem):
             self.system.add_block(1, 1, ops.assemble_bd_stabilization(dom_p))
         self.init_vectors()
 
+    def pipeline_blocks(self):
+        """Block kernels of the device-resident distributed pipeline."""
+        dom_u, dom_p = self.variables[0][0], self.variables[1][0]
+        kind = "stress" if self.sym_stress else "laplace_vec"
+        blocks = [(0, 0, kind, {"viscosity": self.viscosity}),
+                  (0, 1, "divergence_T", {}), (1, 0, "divergence", {})]
+        if dom_u.fe_type == dom_p.fe_type:
+            blocks.append((1, 1, "bd_stab", {}))
+        return blocks
+
     def assemble_source(self, f: Callable) -> None:
         """Volume force f(x), one value per velocity component."""
         dom_u = self.variables[0][0]

@@ -62,6 +62,14 @@ class TPM(Problem):
         self._coupled_system(Ku)
         self.init_vectors()
 
+    def pipeline_blocks(self):
+        """The linear quasi-static Biot blocks of the device pipeline."""
+        return [(0, 0, "lin_elasticity", {"mu": self.mu, "lam": self.lam}),
+                (0, 1, "divergence_T", {"coeff": self.alpha}),
+                (1, 0, "divergence", {"coeff": -self.alpha / self.dt}),
+                (1, 1, "laplace", {"coeff": self.kappa}),
+                (1, 1, "mass", {"coeff": self.storativity / self.dt})]
+
     def assemble_source(self, f: Callable) -> None:
         dom_u = self.variables[0][0]
         self.init_vectors()

@@ -18,9 +18,10 @@ optionally with the padded GDSW coarse level (`'TwoLevel': True`) — as M.
 the distributed solve ('Use Distributed Solve' + 'Devices'): the assembled
 system split into owned-row shards stacked on the problem's device, halo
 exchanges over the shard axis, the distributed one- / two-level Schwarz
-and the Krylov loop over the stacked vectors (parallel/).  Its device-
-resident assembly pipeline ('Use Device Pipeline') raises
-NotImplementedError and names its ROADMAP.md item.
+and the Krylov loop over the stacked vectors (parallel/); with 'Use
+Device Pipeline' the shards are assembled on the device from the
+problem's `pipeline_blocks` (parallel/pipeline.py), no global matrix in
+the chain.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ import torch
 
 from feddlib_tpu_torch.la.block import BlockVector
 from feddlib_tpu_torch.mesh.partition import MeshPartition
+
+
+def _hashable(v):
+    """A cache-key form of a block parameter: arrays (per-element data) by
+    content — an id() would miss fresh arrays and could alias a freed
+    address onto a stale pipeline."""
+    if isinstance(v, np.ndarray):
+        import hashlib
+
+        return ("ndarray", v.shape,
+                hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest())
+    return tuple(v) if isinstance(v, (list, tuple)) else v
 
 
 def _jacobi_op(ops, r):
@@ -52,6 +65,36 @@ def _coarse_space(params):
                     edges=bool(params.get("IPOU Edges", True)),
                     faces=bool(params.get("IPOU Faces", True)))
     return nsp, variant, ipou
+
+
+def _distributed_precond(problem, dmat, params, **coarse):
+    """The shard-axis preconditioner 'Preconditioner Type' names for
+    DistributedSolver: the two-level GDSW (`coarse` is its coarse-space
+    feed: part / points / dofs_per_node / null_space, or blocks),
+    'Jacobi', or the one-level Schwarz ('SchwarzOneLevel', the default)."""
+    prec_type = params.get("Preconditioner Type", "SchwarzOneLevel")
+    overlap = int(params.get("Overlap", 1))
+    combine = params.get("Combine Values in Overlap", "Restricted")
+    if prec_type in ("SchwarzTwoLevel", "GDSW", "TwoLevel"):
+        from feddlib_tpu_torch.precond.gdsw import distributed_two_level
+
+        _, variant, ipou = _coarse_space(params)
+        cprocs = int(params.get("Coarse NumProcs", 0))
+        return distributed_two_level(
+            dmat, combine=combine, overlap=overlap,
+            dirichlet_mask=problem.merged_dirichlet_mask(),
+            variant=variant, ipou=ipou,
+            coarse_procs=0 if cprocs <= 1 else cprocs,
+            level_combination=params.get("Level Combination", "Additive"),
+            coarse_solver=params.get("Coarse Solver", "dense"),
+            coarse_tol=float(params.get("Coarse Tolerance", 1e-6)),
+            coarse_maxiter=int(params.get("Coarse Max Iterations", 200)),
+            **coarse)
+    if prec_type == "Jacobi":
+        return "jacobi"
+    from feddlib_tpu_torch.precond.schwarz import distributed_schwarz
+
+    return distributed_schwarz(dmat, overlap=overlap, combine=combine)
 
 
 def point_cluster_operators(A, points, n_clusters: int, dofs_per_node: int):
@@ -242,18 +285,9 @@ class Preconditioner:
 def _p2_unique_map(part: MeshPartition, dom):
     """Unique node map for a P2 domain built from the P1 partition: midpoint
     nodes are owned by the owner of their lower-numbered edge endpoint."""
-    from feddlib_tpu_torch.la.map import IndexMap
+    from feddlib_tpu_torch.parallel.pipeline import p2_unique_map
 
-    mesh = dom.mesh
-    n_p1 = part.mesh.n_points
-    owner_p1 = part.unique_map.owner_of()
-    mid_owner = owner_p1[mesh.p2_edges.min(axis=1)]
-    parts = []
-    for p in range(part.n_parts):
-        own_p1 = part.unique_map.partition_indices[p]
-        own_mid = n_p1 + np.nonzero(mid_owner == p)[0]
-        parts.append(np.sort(np.concatenate([own_p1, own_mid])))
-    return IndexMap(mesh.n_points, parts)
+    return p2_unique_map(part, dom.mesh)
 
 
 class LinearSolver:
@@ -273,9 +307,8 @@ class LinearSolver:
             "IterationDetails" in str(params.get("Verbosity", ""))
         out_freq = int(params.get("Output Frequency", 10))
 
-        # a problem-owned distributed path (the JAX package's FSI pipeline)
-        # assembles and solves itself and returns the split solution; its
-        # first setter, FSI's distributed solve, comes with ROADMAP A10b
+        # a problem-owned distributed path (FSI's multi-mesh pipeline)
+        # assembles and solves itself and returns the split solution
         hook = getattr(problem, "_distributed_solve_hook", None)
         if hook is not None:
             return hook(b)
@@ -464,22 +497,23 @@ class LinearSolver:
         8 virtual devices in its test harness), so tests and the card's
         smoke run pass it.  The shards, plans and preconditioner are cached
         on the problem (`_dist_cache`) while A's pattern is unchanged and
-        the preconditioner is not stale.  'Use Device Pipeline' (the
-        device-resident assembly of ROADMAP.md A10b) raises."""
+        the preconditioner is not stale.  With 'Use Device Pipeline' and a
+        problem that has `pipeline_blocks`, `_solve_pipeline` assembles
+        the shards on the device instead."""
         from feddlib_tpu_torch.parallel.solve import DistributedSolver
         from feddlib_tpu_torch.parallel.spmd import (DeviceAxis,
                                                      DistributedCsr,
                                                      lane_index)
 
-        if bool(params.get("Use Device Pipeline", False)):
-            raise NotImplementedError(
-                "'Use Device Pipeline' (the device-resident distributed "
-                "assembly and its preconditioner path) is not ported yet "
-                "(ROADMAP.md A10b)")
         dev = problem.device
         n_default = (torch.cuda.device_count() if dev.type == "cuda"
                      else torch.cpu.device_count())
         n_dev = int(params.get("Devices", n_default))
+        hook = getattr(problem, "pipeline_blocks", None)
+        if hook is not None and bool(params.get("Use Device Pipeline",
+                                                False)):
+            return self._solve_pipeline(problem, hook(), b, params, tol,
+                                        maxiter, restart, method, n_dev)
         cache = getattr(problem, "_dist_cache", None)
         if (cache is None or cache["pattern"] is not A.pattern
                 or problem._prec_stale):
@@ -493,44 +527,16 @@ class LinearSolver:
             dmat = DistributedCsr(A, dof_map)
             t1 = time.perf_counter()
             solver = DistributedSolver(dmat, DeviceAxis(n_dev, dev))
-            prec_type = params.get("Preconditioner Type", "SchwarzOneLevel")
-            overlap = int(params.get("Overlap", 1))
-            combine = params.get("Combine Values in Overlap", "Restricted")
-            if prec_type in ("SchwarzTwoLevel", "GDSW", "TwoLevel"):
-                from feddlib_tpu_torch.precond.gdsw import \
-                    distributed_two_level
-
-                nsp, variant, ipou = _coarse_space(params)
-                cprocs = int(params.get("Coarse NumProcs", 0))
-                common = dict(
-                    combine=combine, overlap=overlap,
-                    dirichlet_mask=problem.merged_dirichlet_mask(),
-                    variant=variant, ipou=ipou,
-                    coarse_procs=0 if cprocs <= 1 else cprocs,
-                    level_combination=params.get("Level Combination",
-                                                 "Additive"),
-                    coarse_solver=params.get("Coarse Solver", "dense"),
-                    coarse_tol=float(params.get("Coarse Tolerance", 1e-6)),
-                    coarse_maxiter=int(params.get("Coarse Max Iterations",
-                                                  200)))
-                if len(problem.variables) == 1:
-                    precond = distributed_two_level(
-                        dmat, part, dom0.mesh.points,
-                        problem.total_dofs_per_node(), null_space=nsp,
-                        **common)
-                else:
-                    # the monolithic block GDSW of the serial path
-                    precond = distributed_two_level(
-                        dmat, blocks=problem.preconditioner._block_specs(
-                            part, nsp), **common)
-            elif prec_type == "Jacobi":
-                precond = "jacobi"
-            else:
-                from feddlib_tpu_torch.precond.schwarz import \
-                    distributed_schwarz
-
-                precond = distributed_schwarz(dmat, overlap=overlap,
-                                              combine=combine)
+            nsp, _, _ = _coarse_space(params)
+            # the coarse-space feed: one field's partition, points and dofs
+            # per node, or the monolithic block GDSW of the serial path
+            precond = _distributed_precond(
+                problem, dmat, params,
+                **(dict(part=part, points=dom0.mesh.points,
+                        dofs_per_node=problem.total_dofs_per_node(),
+                        null_space=nsp) if len(problem.variables) == 1
+                   else dict(blocks=problem.preconditioner._block_specs(
+                       part, nsp))))
             # the stacked lane of each global dof, for the vector scatter /
             # gather on the device
             gids, lanes = lane_index(dof_map, dmat.plan.N_o)
@@ -558,6 +564,96 @@ class LinearSolver:
         xg = bf.new_zeros(bf.shape[0])
         xg[gids] = x.reshape(-1)[lanes]
         return BlockVector.split(xg, problem.block_sizes()), iters
+
+    def _solve_pipeline(self, problem, pblocks, b: BlockVector, params,
+                        tol, maxiter, restart, method, n_dev):
+        """The device-resident chain of 'Use Device Pipeline': the
+        pipeline assembles the shards from the problem's block kernels
+        (no global matrix), Dirichlet rows are eliminated on the shards,
+        and the distributed preconditioner and Krylov loop solve.
+
+        The pipeline is cached on the problem (`_pipe_cache`) under a key
+        of the block kinds and parameters (per-element data by content)
+        and the shard count; the solution and the RHS ride their shard
+        mirrors (`BlockVector._dist_mirror`), so a Newton loop uploads the
+        solution once."""
+        from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
+        from feddlib_tpu_torch.parallel.spmd import DeviceAxis
+
+        pkey = (tuple((i, j, kind, tuple(sorted((k, _hashable(v))
+                                                for k, v in prm.items())))
+                      for i, j, kind, prm in pblocks), n_dev)
+        pc = getattr(problem, "_pipe_cache", None)
+        if pc is None or pc["key"] != pkey:
+            dom0 = problem.domains[0]
+            base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
+                         else dom0.mesh)
+            t0 = time.perf_counter()
+            part = MeshPartition(base_mesh, n_dev)
+            t1 = time.perf_counter()
+            pipe = DistributedPipeline(
+                part, [(dom, dofs) for dom, dofs, _ in problem.variables])
+            for i, j, kind, prm in pblocks:
+                pipe.add_block(i, j, kind, **prm)
+            pipe.finalize(DeviceAxis(n_dev, problem.device))
+            pc = {"key": pkey, "pipe": pipe, "part": part,
+                  "timings": {"partition_s": t1 - t0,
+                              "finalize_s": time.perf_counter() - t1}}
+            problem._pipe_cache = pc
+        pipe = pc["pipe"]
+        x_dist = None
+        if (problem.solution is not None
+                and any(k in ("advection", "advection_in_u", "hyperelastic")
+                        for _, _, k, _ in pblocks)):
+            # the solution's shards: Newton / time updates propagate them
+            # (BlockVector.axpy), so only the first assembly uploads
+            mir = problem.solution._dist_mirror
+            if mir is not None and mir[0] is pipe:
+                x_dist = mir[1]
+            else:
+                x_dist = pipe.distribute(problem.solution.concat())
+                problem.solution._dist_mirror = (pipe, x_dist)
+        dmat = pipe.assemble(x=x_dist)
+        dmat, _ = pipe.apply_dirichlet(dmat, None,
+                                       problem.merged_dirichlet_mask())
+        bmir = b._dist_mirror
+        b_dist = (bmir[1] if bmir is not None and bmir[0] is pipe
+                  else pipe.distribute(b.concat()))
+        x, iters, rel = self._dist_precond_solve(
+            problem, dmat, b_dist, params, tol, maxiter, restart, method,
+            pipe.axis, pipe.block_specs(
+                params.get("Null Space Type", "laplace").lower()))
+        problem.last_relres = rel
+        if rel > tol:
+            warnings.warn(f"distributed solve not converged: relres={rel}")
+        out = BlockVector.split(pipe.gather(x), problem.block_sizes())
+        out._dist_mirror = (pipe, x)
+        return out, iters
+
+    def _dist_precond_solve(self, problem, dmat, b_dist, params, tol,
+                            maxiter, restart, method, axis, block_specs):
+        """The preconditioner build and the Krylov loop of the pipeline
+        path.  The preconditioner and the solver are cached on the problem
+        (`_pipe_prec`) and reused while not stale and on the same halo
+        plan; the matrix values always come from the fresh dmat."""
+        from feddlib_tpu_torch.parallel.solve import DistributedSolver
+
+        cache = getattr(problem, "_pipe_prec", None)
+        if (cache is None or problem._prec_stale
+                or cache["plan"] is not dmat.plan):
+            t0 = time.perf_counter()
+            precond = _distributed_precond(problem, dmat, params,
+                                           blocks=block_specs)
+            cache = {"plan": dmat.plan, "precond": precond,
+                     "solver": DistributedSolver(dmat, axis),
+                     "precond_s": time.perf_counter() - t0}
+            problem._pipe_prec = cache
+            problem._prec_stale = False
+        solver = cache["solver"]
+        solver.dmat = dmat  # fresh values, the same plan and shapes
+        return solver.solve(b_dist, method="cg" if method == "cg"
+                            else "gmres", tol=tol, maxiter=maxiter,
+                            restart=restart, precond=cache["precond"])
 
     def solve(self, problem, rhs=None) -> int:
         x, iters = self.solve_system(

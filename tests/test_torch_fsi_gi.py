@@ -41,10 +41,17 @@ def test_gi_with_facsi_raises():
 
 
 def test_distributed_solve_raises():
-    prob = _problem("torch", 3, dict(FACSI, **{"Use Distributed Solve":
-                                                True}))
+    """'Use Distributed Solve' on FSI (the pipeline and distributed FaCSI,
+    tests/test_torch_fsi_pipeline.py) refuses what the JAX package
+    refuses: a linearisation other than Newton, and a shard count without
+    a fluid and a solid shard."""
+    prob = _problem("torch", 3, dict(FACSI, **{
+        "Use Distributed Solve": True, "Devices": 6, "Solid Devices": 2}))
+    with pytest.raises(ValueError, match="newton_method='Newton'"):
+        prob.advance(t_end=0.02, newton_method="FixedPoint")
+    prob.parameter_list["Devices"] = 2
     for run in (prob.advance, prob.advance_gi):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
+        with pytest.raises(ValueError, match="one fluid and one solid"):
             run(t_end=0.02)
 
 

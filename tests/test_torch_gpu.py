@@ -998,3 +998,76 @@ def test_distributed_solve_bitwise_repeatable_on_card(hopper):
         xs.append((it, prob.solution[0].clone()))
     assert xs[0][0] == xs[1][0]
     assert torch.equal(xs[0][1], xs[1][1])
+
+
+def _ns_pipeline(device, n_parts=8):
+    """A P2/P1 Navier–Stokes pipeline (vector Laplace, N(u), W(u), the
+    divergence pair) on Domain.structured(3, 4) with a volume RHS, and a
+    seeded merged solution on its shards."""
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
+    from feddlib_tpu_torch.parallel.spmd import DeviceAxis
+
+    dom_p = Domain.structured(3, 4, device=device)
+    dom_u = dom_p.p2_domain()
+    pipe = DistributedPipeline(MeshPartition(dom_p.mesh, n_parts),
+                               [(dom_u, 3), (dom_p, 1)])
+    for i, j, kind, prm in [(0, 0, "laplace_vec", {"viscosity": 0.01}),
+                            (0, 0, "advection", {}),
+                            (0, 0, "advection_in_u", {}),
+                            (0, 1, "divergence_T", {}),
+                            (1, 0, "divergence", {})]:
+        pipe.add_block(i, j, kind, **prm)
+    pipe.add_rhs(0, lambda x, t: torch.stack(
+        [torch.sin(x[0]) + t, x[1] * x[2], 0.0 * x[0]]))
+    pipe.finalize(DeviceAxis.make(n_parts, device))
+    x = np.random.default_rng(5).standard_normal(int(pipe.offsets[-1]))
+    return pipe, pipe.distribute(x)
+
+
+@pytest.mark.gpu
+def test_pipeline_assembly_bitwise_repeatable_on_card(hopper):
+    """Two assemblies on the card — the same pipeline twice, and a fresh
+    pipeline — give bitwise-equal shards and device RHS: both segment sums
+    take a fixed order, no atomics over real duplicates."""
+    pipe, x = _ns_pipeline(hopper)
+    a, b = pipe.assemble(x=x), pipe.assemble(x=x)
+    assert a.ell_data.device.type == "cuda"
+    assert torch.equal(a.ell_data, b.ell_data)
+    pipe2, x2 = _ns_pipeline(hopper)
+    assert torch.equal(a.ell_data, pipe2.assemble(x=x2).ell_data)
+    assert torch.equal(pipe.assemble_rhs_device(0.3),
+                       pipe2.assemble_rhs_device(0.3))
+
+
+@pytest.mark.gpu
+def test_pipeline_assembly_on_card_matches_cpu(hopper):
+    """The card's pipeline shards and device RHS against the CPU's within
+    1e-13 of max |a| (element sums in another order); the plans equal."""
+    cpu, x_c = _ns_pipeline("cpu")
+    card, x_g = _ns_pipeline(hopper)
+    for k in ("seg_ids", "ell_src", "ell_cols"):
+        assert torch.equal(getattr(cpu, k), getattr(card, k).cpu())
+    a, b = cpu.assemble(x=x_c).ell_data, card.assemble(x=x_g).ell_data
+    assert _rel(b.cpu(), a) < 1e-13
+    assert _rel(card.assemble_rhs_device(0.3).cpu(),
+                cpu.assemble_rhs_device(0.3)) < 1e-13
+
+
+@pytest.mark.gpu
+def test_fsi_distributed_facsi_on_card_matches_cpu(hopper):
+    """Two GE time steps of the 2D two-box with 'Use Distributed Solve'
+    (the multi-mesh pipeline and distributed FaCSI, 6 shards of which 2
+    solid) on the card: the CPU's GMRES counts, the solution within 1e-8
+    relative."""
+    dist = {"Use Distributed Solve": True, "Devices": 6, "Solid Devices": 2,
+            "Convergence Tolerance": 1e-10, "relNonLinTol": 1e-9}
+    runs = []
+    for device in ("cpu", hopper):
+        prob = _fsi_two_box(device, 3, dist)
+        prob.advance(t_end=0.04)
+        runs.append((prob.nonlinear_solver.linear_iters,
+                     prob.solution.concat().cpu()))
+    assert prob._pipe_ge["pipe"].ell_src.device.type == "cuda"
+    assert runs[0][0] == runs[1][0]
+    assert _rel(runs[1][1], runs[0][1]) < 1e-8

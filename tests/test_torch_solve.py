@@ -160,23 +160,28 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_paths_raise():
-    """What is still unported raises and names its ROADMAP.md item: the
-    device-resident distributed assembly ('Use Device Pipeline', A10b).
-    (Before the Schwarz types, FaCSI and the distributed solve were
-    ported, the default preconditioner, 'FaCSI' and 'Use Distributed
-    Solve' raised here; test_default_solve_converges,
-    tests/test_torch_fsi.py and tests/test_torch_distributed.py hold them
-    now.  FaCSI acts on the four GE fields of an FSI problem only, and
-    says so on a one-field problem.)"""
+    """FaCSI acts on the four GE fields of an FSI problem only, and says
+    so on a one-field problem.  (Before the Schwarz types, FaCSI, the
+    distributed solve and the device pipeline were ported, the default
+    preconditioner, 'FaCSI', 'Use Distributed Solve' and 'Use Device
+    Pipeline' raised here; test_default_solve_converges,
+    tests/test_torch_fsi.py, tests/test_torch_distributed.py and
+    tests/test_torch_pipeline_solve.py hold them now.)  'Use Device
+    Pipeline' now assembles the shards through the pipeline, in the count
+    of the split-shard run."""
     pt = _laplace(TDomain, TLaplace, TPL, 3, 2, False, device="cpu")
     pt.parameter_list["Use Mixed Precision"] = False
     pt.parameter_list["Preconditioner Type"] = "FaCSI"
     with pytest.raises(ValueError, match="four GE fields"):
         pt.solve()
+    pt.parameter_list["Preconditioner Type"] = "SchwarzOneLevel"
     pt.parameter_list["Use Distributed Solve"] = True
+    pt.parameter_list["Devices"] = 4
+    its_split = pt.solve()
+    assert getattr(pt, "_pipe_cache", None) is None
     pt.parameter_list["Use Device Pipeline"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10b"):
-        pt.solve()
+    assert pt.solve() == its_split
+    assert pt._pipe_cache["pipe"].n_dev == 4
 
 
 def test_default_solve_converges():
