@@ -131,7 +131,24 @@ exits non-zero):
      13d one GI step of phase 11c's (16 shards, 4 solid) against the
      serial step; 13e the small pipeline cases of the CPU tests (Laplace,
      the device-RHS heat loop, TPM consolidation, hyperelastic Newton) on
-     the card against the CPU.  Phase 13 launches no Hopper kernel either.
+     the card against the CPU.  Phase 13 launches no Hopper kernel either;
+ 14. shards on several processes and AMR: 14a phase 13a's system through
+     Problem.solve on two ranks of the gloo backend, both on the one card
+     (256 shards a rank, parallel/multihost.py's launcher): each rank's
+     setup seconds by part, A / M(A(x)) / assembly wall and busy ms,
+     launches and the bytes and seconds of their cross-rank transfers;
+     the count, x (1e-12) and the gathered matrix (bitwise) against 13a's;
+     14b the small cases of 12b and 13e on one NCCL rank, bitwise the
+     stacked runs, and what NCCL says to two ranks on one card; 14c
+     adaptive_solve_cycles on the unit square from 128^2 P1 cells
+     (--n-amr; the Gaussian peak of tests/test_amr.py, Dörfler 0.6, 4
+     cycles, solves to 1e-12) in three modes: 'Use Mixed Precision' +
+     'TwoLevel' (B1-B3 launch every cycle and are held against their
+     plain versions at the last cycle's shapes), 'Use Distributed Solve'
+     + 'Use Device Pipeline' on 16 shards, and that with 'Use Distributed
+     AMR'; per cycle the counts, eta, seconds by part and launches; the
+     modes' meshes compared up to the problem's symmetries, eta within
+     1e-8 on every shared mesh.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -1702,24 +1719,8 @@ def _phase12(torch, np, args, dev, ref7):
 
     # 12b: the card against the CPU at a small size
     t1 = time.perf_counter()
-    cases = [("Jacobi", {"Preconditioner Type": "Jacobi"}),
-             ("SchwarzOneLevel", {"Preconditioner Type": "SchwarzOneLevel",
-                                  "Overlap": 2,
-                                  "Combine Values in Overlap": "Averaging"}),
-             ("SchwarzTwoLevel", {"Preconditioner Type": "SchwarzTwoLevel"})]
-    for name, p in cases:
-        out = []
-        for d in (dev, torch.device("cpu")):
-            pr = _laplace2d(torch, 16, dict(
-                p, **{"Use Distributed Solve": True, "Devices": 8}), d)
-            out.append((pr.solve(), pr.solution[0].cpu().numpy()))
-        _small_pair(np, name, out)
-    out = []
-    for d in (dev, torch.device("cpu")):
-        pr = _stokes2d(torch, 8, {"Use Distributed Solve": True,
-                                  "Devices": 4}, d)
-        out.append((pr.solve(), pr.solution.concat().cpu().numpy()))
-    _small_pair(np, "Stokes P2/P1 block GDSW", out)
+    for name, fn in _dist_cases(torch):
+        _small_pair(np, name, [fn(dev), fn(torch.device("cpu"))])
     _phase("12b distributed card vs cpu", t1)
     _phase("12 distributed", t0)
     return ref12
@@ -1764,7 +1765,7 @@ def _stokes2d(torch, n, params, device):
 
 
 def _small_pair(np, name, out):
-    (it_c, x_c), (it_h, x_h) = out  # the card's run, the CPU's
+    ([it_c], x_c), ([it_h], x_h) = out  # the card's run, the CPU's
     dx = float(np.abs(x_c - x_h).max())
     print(f"distributed {name} cuda vs cpu: iters {it_c} vs {it_h}, "
           f"max|dx|={dx:.3e} max|x|={np.abs(x_h).max():.3e}", flush=True)
@@ -1911,10 +1912,15 @@ def _phase13a(torch, np, args, dev, ref12):
           f"(wall) launches={la}{ref_s}; second solve {t_second:.3f} s "
           f"(assembly + Dirichlet + GMRES, cached), bitwise equal",
           flush=True)
+    # phase 14a's reference: this solve and the values of its matrix
+    ref13 = {"n": args.n_dist, "parts": n_dev, "iters": iters, "x": u,
+             "ell": dmat.ell_host().copy(), "asm_ms": asm_ms,
+             "asm_wall_ms": asm_wall, "setup_s": setup_s}
     del prob, pc, pp, pipe, solver, dmat, build, arrs, A_sp
     gc.collect()
     torch.cuda.empty_cache()
     _phase("13a pipeline main path", t0)
+    return ref13
 
 
 def _phase13b(torch, np, args, dev):
@@ -2126,7 +2132,7 @@ def _heat_loop(torch, np, device):
     dM = pm.assemble()
     imp = dM.plan.importer()
     m_dist, _ = pipe.dirichlet_arrays(dmask)
-    u = torch.zeros(pipe.n_dev, pipe.N_o, dtype=torch.float64,
+    u = torch.zeros(pipe.axis.n_local, pipe.N_o, dtype=torch.float64,
                     device=pipe.device)
     iters = []
     for k in range(3):
@@ -2139,9 +2145,9 @@ def _heat_loop(torch, np, device):
     return iters, pipe.collect(u)
 
 
-def _phase13e(torch, np, dev):
-    """13e: the small pipeline scenarios of the CPU tests on the card
-    against the same runs on the CPU."""
+def _pipe_cases(torch, np):
+    """The small pipeline scenarios of the CPU tests: [(name, fn(device) →
+    (counts, x))] (phases 13e and 14b)."""
     from feddlib_tpu_torch.fe.domain import Domain
     from feddlib_tpu_torch.problems.nonlin_elasticity import \
         NonLinElasticity
@@ -2149,7 +2155,6 @@ def _phase13e(torch, np, dev):
     from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
     from feddlib_tpu_torch.utils.config import ParameterList
 
-    t0 = time.perf_counter()
     pipe_opts = {"Use Distributed Solve": True, "Devices": 4,
                  "Use Device Pipeline": True}
 
@@ -2194,10 +2199,40 @@ def _phase13e(torch, np, dev):
         its = s.solve(pr)
         return [its] + list(s.linear_iters), pr.solution[0].cpu().numpy()
 
-    cases = [("Laplace 2D 16 cells, 4 shards", laplace),
-             ("device-RHS heat loop", lambda d: _heat_loop(torch, np, d)),
-             ("TPM consolidation", tpm), ("hyperelastic Newton", hyper)]
-    for name, fn in cases:
+    return [("Laplace 2D 16 cells, 4 shards", laplace),
+            ("device-RHS heat loop", lambda d: _heat_loop(torch, np, d)),
+            ("TPM consolidation", tpm), ("hyperelastic Newton", hyper)]
+
+
+def _dist_cases(torch):
+    """The small distributed-solve scenarios of phase 12b: [(name,
+    fn(device) → (counts, x))] (phases 12b and 14b)."""
+    def laplace(p):
+        def run(d):
+            pr = _laplace2d(torch, 16, dict(
+                p, **{"Use Distributed Solve": True, "Devices": 8}), d)
+            return [pr.solve()], pr.solution[0].cpu().numpy()
+        return run
+
+    def stokes(d):
+        pr = _stokes2d(torch, 8, {"Use Distributed Solve": True,
+                                  "Devices": 4}, d)
+        return [pr.solve()], pr.solution.concat().cpu().numpy()
+
+    return [("Jacobi", laplace({"Preconditioner Type": "Jacobi"})),
+            ("SchwarzOneLevel", laplace({
+                "Preconditioner Type": "SchwarzOneLevel", "Overlap": 2,
+                "Combine Values in Overlap": "Averaging"})),
+            ("SchwarzTwoLevel", laplace({
+                "Preconditioner Type": "SchwarzTwoLevel"})),
+            ("Stokes P2/P1 block GDSW", stokes)]
+
+
+def _phase13e(torch, np, dev):
+    """13e: the small pipeline scenarios of the CPU tests on the card
+    against the same runs on the CPU."""
+    t0 = time.perf_counter()
+    for name, fn in _pipe_cases(torch, np):
         (it_c, x_c), (it_h, x_h) = fn(dev), fn(torch.device("cpu"))
         dx = float(np.abs(x_c - x_h).max())
         print(f"pipeline {name} cuda vs cpu: counts {it_c} vs {it_h}, "
@@ -2211,13 +2246,390 @@ def _phase13e(torch, np, dev):
 def _phase13(torch, np, args, dev, ref12):
     """The device-resident pipeline (see the module docstring)."""
     t0 = time.perf_counter()
-    _phase13a(torch, np, args, dev, ref12)
+    ref13 = _phase13a(torch, np, args, dev, ref12)
     _phase13b(torch, np, args, dev)
     gc.collect()
     torch.cuda.empty_cache()
     _phase13cd(torch, np, args, dev)
     _phase13e(torch, np, dev)
     _phase("13 pipeline", t0)
+    return ref13
+
+
+def _trace(torch, fn):
+    """(launches, busy ms) of one call of fn from a torch.profiler trace:
+    the kernels and copies on the card and the sum of their durations;
+    (None, None) where the trace shows no device events.  Every rank of a
+    program calls it alike (fn runs twice)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None, None
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall_ms(torch, dev, fn, calls=10):
+    fn()
+    _sync(torch, dev)
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    _sync(torch, dev)
+    return (time.perf_counter() - t) / calls * 1e3
+
+
+def _phase14a_rank(n, n_dev, device_type="cuda"):
+    """One rank of phase 14a: phase 13a's solve through Problem.solve on
+    this rank's shards (the axis of multihost.global_device_axis).
+    `device_type` "cpu" rehearses it without a card."""
+    import numpy as np  # noqa: F401
+    import torch
+
+    from feddlib_tpu_torch.parallel import multihost
+
+    torch.set_num_threads(4)
+    dev = multihost.local_device(device_type)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    params = {"Use Distributed Solve": True, "Use Device Pipeline": True,
+              "Devices": n_dev, "Preconditioner Type": "SchwarzTwoLevel",
+              "Convergence Tolerance": 1e-8}
+    t0 = time.perf_counter()
+    prob = _default_laplace(torch, n, params, dev)
+    _sync(torch, dev)
+    t_asm = time.perf_counter() - t0
+    if on_card:
+        m0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    iters = prob.solve()
+    _sync(torch, dev)
+    t_solve = time.perf_counter() - t1
+    pc, pp = prob._pipe_cache, prob._pipe_prec
+    pipe, solver = pc["pipe"], pp["solver"]
+    axis = pipe.axis
+    x_solve = dict(axis.xfer)
+    build = pp["precond"][0]
+    tm = dict(pc["timings"], **{f"finalize.{k}": v
+                                for k, v in pipe.timings.items()})
+    tm.update(precond_s=pp["precond_s"],
+              **{f"precond.{k}": v for k, v in build.timings.items()})
+    x = prob.solution[0].cpu().numpy()
+    dmat = solver.dmat
+    ell = dmat.ell_host()  # gathered once during the setup
+    _check(dmat.ell_data.device == dev == pipe.seg_ids.device
+           and dmat.ell_data.shape[0] == axis.n_local, "the rank's shards "
+           "on its device")
+    # one A, one M(A(x)) and one assembly: wall ms, launches, busy ms,
+    # cross-rank bytes and seconds of each
+    A_fn, M_fn = solver.operators(pp["precond"])
+    g = torch.Generator(device=dev).manual_seed(axis.rank)
+    xs = torch.randn(axis.n_local, dmat.plan.N_o, dtype=torch.float64,
+                     device=dev, generator=g) * dmat.plan.owned_mask
+    out = {}
+    for key, fn in (("A", lambda: A_fn(xs)),
+                    ("M(A(x))", lambda: M_fn(A_fn(xs))),
+                    ("assembly", lambda: pipe.assemble())):
+        wall = _wall_ms(torch, dev, fn)
+        axis.reset_xfer()
+        fn()
+        _sync(torch, dev)
+        one = dict(axis.xfer)
+        la, busy = _trace(torch, fn) if on_card else (None, None)
+        out[key] = {"wall_ms": wall, "launches": la, "busy_ms": busy,
+                    "xfer_bytes": one["bytes"], "xfer_s": one["seconds"],
+                    "xfer_calls": one["calls"]}
+    res = {"rank": axis.rank, "lo": axis.lo, "hi": axis.hi,
+           "backend": axis.backend, "iters": iters,
+           "relres": prob.last_relres, "assemble_s": t_asm,
+           "first_solve_s": t_solve, "setup": tm, "xfer_solve": x_solve,
+           "applies": out, "n_local": axis.n_local, "N_o": dmat.plan.N_o,
+           "allocated": (torch.cuda.memory_allocated() - m0 if on_card
+                         else None),
+           "peak": (torch.cuda.max_memory_allocated() - m0 if on_card
+                    else None)}
+    print(f"rank {axis.rank} shards [{axis.lo}, {axis.hi}) on {dev} "
+          f"({axis.backend}): gmres_iters={iters} relres="
+          f"{prob.last_relres:.3e} assemble_s={t_asm:.3f} first_solve_s="
+          f"{t_solve:.3f}; setup s " + " ".join(
+              f"{k}={v:.3f}" for k, v in tm.items())
+          + f"; cross-rank in the first solve {x_solve}", flush=True)
+    if axis.rank == 0:
+        res.update(x=x, ell=ell)
+    return res
+
+
+def _phase14a(torch, np, args, dev, ref13):
+    """14a: phase 13a's system on two ranks of the gloo backend, both on
+    the one card."""
+    from feddlib_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    n, n_dev = args.n_dist, args.dist_devices
+    ranks = multihost.launch(_phase14a_rank, 2, args=(n, n_dev, dev.type),
+                             backend="gloo", timeout=args.rank_timeout,
+                             env={"OPENBLAS_NUM_THREADS": "1"}, echo=True)
+    for r in ranks:
+        print(f"two ranks: rank {r['rank']} [{r['lo']}, {r['hi']}) "
+              f"n_local={r['n_local']} N_o={r['N_o']} gmres={r['iters']} "
+              f"relres={r['relres']:.3e} allocated={r['allocated']} "
+              f"peak={r['peak']}", flush=True)
+        for k, v in r["applies"].items():
+            busy = ("None" if v["busy_ms"] is None
+                    else f"{v['busy_ms']:.5f}")
+            print(f"two ranks: rank {r['rank']} {k}: wall_ms="
+                  f"{v['wall_ms']:.5f} busy_ms={busy} (kernels and "
+                  f"copies) launches={v['launches']} cross_rank_bytes="
+                  f"{v['xfer_bytes']} cross_rank_s={v['xfer_s']:.6f} "
+                  f"collectives={v['xfer_calls']}", flush=True)
+    r0 = ranks[0]
+    _check(all(r["iters"] == r0["iters"] for r in ranks)
+           and r0["relres"] <= 1e-8, "two ranks: converged alike")
+    if ref13 is None or (ref13["n"], ref13["parts"]) != (n, n_dev):
+        print("two ranks vs phase 13a: comparison skipped (phase 13a not "
+              "run or its flags differ)", flush=True)
+    else:
+        dx = float(np.abs(r0["x"] - ref13["x"]).max()
+                   / np.abs(ref13["x"]).max())
+        same = bool(np.array_equal(r0["ell"], ref13["ell"]))
+        print(f"two ranks vs phase 13a: gmres {r0['iters']} vs "
+              f"{ref13['iters']}, max|dx|/max|x|={dx:.3e}, matrix bitwise "
+              f"equal={same}; setup {max(r['setup']['precond_s'] + r['setup']['finalize_s'] + r['setup']['partition_s'] for r in ranks):.3f} s "
+              f"vs 13a's {ref13['setup_s']:.3f}; assembly wall "
+              f"{max(r['applies']['assembly']['wall_ms'] for r in ranks):.5f}"
+              f" ms vs 13a's {ref13['asm_wall_ms']:.5f}", flush=True)
+        _check(r0["iters"] == ref13["iters"], "two ranks: 13a's count")
+        _check(dx <= 1e-12, "two ranks: x within 1e-12 of 13a's")
+        _check(same, "two ranks: the matrix bitwise 13a's")
+    _phase("14a two ranks on one card (gloo)", t0)
+
+
+def _phase14b_rank(device_type="cuda"):
+    """Phase 14b's rank: the small cases of 12b and 13e."""
+    import numpy as np
+    import torch
+
+    from feddlib_tpu_torch.parallel import multihost
+
+    dev = multihost.local_device(device_type)
+    axis = multihost.global_device_axis(4, dev)
+    _check(axis.group is not None and axis.world == 1,
+           "14b runs inside a process group of one rank")
+    print(f"one rank of {axis.backend} on {dev}", flush=True)
+    return [(name, fn(dev)) for name, fn in
+            _dist_cases(torch) + _pipe_cases(torch, np)]
+
+
+def _nccl_probe_rank():
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    t = torch.ones(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t[0])
+
+
+def _phase14b(torch, np, args, dev):
+    """14b: one rank over NCCL, bitwise the stacked runs; what NCCL says
+    to two ranks on one card."""
+    from feddlib_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    # NCCL on the card; gloo where a CPU rehearses the phase
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    (got,) = multihost.launch(_phase14b_rank, 1, args=(dev.type,),
+                              backend=backend, timeout=args.rank_timeout,
+                              echo=True)
+    ref = [(name, fn(dev)) for name, fn in
+           _dist_cases(torch) + _pipe_cases(torch, np)]
+    for (name, (it_r, x_r)), (_, (it_s, x_s)) in zip(got, ref):
+        same = list(it_r) == list(it_s) and np.array_equal(x_r, x_s)
+        print(f"one {backend} rank vs stacked, {name}: counts {list(it_r)} "
+              f"vs {list(it_s)}, bitwise equal={same}", flush=True)
+        _check(same, f"one {backend} rank bitwise the stacked run: {name}")
+    if dev.type != "cuda":
+        _phase("14b one rank", t0)
+        return
+    t1 = time.perf_counter()
+    try:
+        val = multihost.launch(_nccl_probe_rank, 2, backend="nccl",
+                               timeout=90)
+        print(f"NCCL with two ranks on one card: all_reduce ran, {val}",
+              flush=True)
+    except RuntimeError as e:
+        said = [ln.strip() for ln in str(e).splitlines()
+                if "NCCL" in ln or "nccl" in ln or "Error" in ln]
+        print("NCCL with two ranks on one card refused it: "
+              + " | ".join(said[-6:]), flush=True)
+    print(f"NCCL probe {time.perf_counter() - t1:.3f} s (diagnostic; no "
+          f"path runs two NCCL ranks on one card)", flush=True)
+    _phase("14b one NCCL rank", t0)
+
+
+# the eight symmetries of the unit square, on [n, 2] points
+_SQUARE_MAPS = (lambda p: p, lambda p: p[:, ::-1], lambda p: 1 - p,
+                lambda p: (1 - p)[:, ::-1],
+                lambda p: p * [-1, 1] + [1, 0], lambda p: p * [1, -1] + [0, 1],
+                lambda p: p[:, ::-1] * [-1, 1] + [1, 0],
+                lambda p: p[:, ::-1] * [1, -1] + [0, 1])
+
+
+def _geometry_key(np, points, elements):
+    """A hash of a mesh's geometry, blind to the numbering of its points
+    and elements (refine_distributed_2d numbers them otherwise than
+    refine_mesh_2d): each point by the rank of its coordinates, each
+    element by its sorted point ranks, the elements sorted."""
+    import hashlib
+
+    uniq, rank = np.unique(np.round(points, 12), axis=0, return_inverse=True)
+    el = np.sort(rank.reshape(-1)[elements], axis=1)
+    el = el[np.lexsort(el.T[::-1])]
+    return hashlib.sha1(uniq.tobytes() + el.tobytes()).hexdigest()
+
+
+def _mesh_key(np, mesh, maps=(_SQUARE_MAPS[0],)):
+    """The least `_geometry_key` of the mesh under `maps`: meshes that are
+    images of each other under one of them share the key."""
+    el = mesh.elements[:, : mesh.dim + 1]
+    return min(_geometry_key(np, m(mesh.points), el) for m in maps)
+
+
+def _phase14c(torch, np, args, dev, hold_b123):
+    """14c: adaptive_solve_cycles on the card, three modes."""
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.mesh.structured import build_structured_mesh
+    from feddlib_tpu_torch.solvers.refinement import adaptive_solve_cycles
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    t0 = time.perf_counter()
+
+    def f_t(x):
+        return torch.exp(-100 * ((x[0] - 0.5) ** 2 + (x[1] - 0.5) ** 2))
+
+    def f_np(x):
+        return float(np.exp(-100 * ((x[0] - .5) ** 2 + (x[1] - .5) ** 2)))
+
+    base = {"Convergence Tolerance": args.amr_tol}
+    dist = {"Use Distributed Solve": True, "Use Device Pipeline": True,
+            "Devices": args.amr_devices}
+    modes = [("mixed", {"Use Mixed Precision": True, "TwoLevel": True,
+                        "Clusters": args.amr_clusters}),
+             ("dist", dist), ("dist_amr", dict(dist, **{
+                 "Use Distributed AMR": True}))]
+    hist, kept = {}, {}
+    keys = ("permute_gather", "sell_spmv", "dense_gemv_f32")
+    # the problem's symmetries: the square's that map the first mesh onto
+    # itself (the source is radial about the centre); a tied group of
+    # indicators can split into either of two mirror-image meshes
+    mesh0 = build_structured_mesh(2, args.n_amr)
+    k0 = _mesh_key(np, mesh0)
+    maps = [m for m in _SQUARE_MAPS
+            if _mesh_key(np, mesh0, (m,)) == k0]
+    for mode, opts in modes:
+        per = []
+
+        def cb(c, prob, rec, mode=mode, per=per):
+            counts = dict(_cuda.launch_counts)
+            shape = ""
+            if mode == "mixed":
+                ca = prob._mixed_cache
+                db = ca["db32"]
+                shape = (f" B3 [{db.P}, {db.R}, {db.R + db.G}] B2 "
+                         f"{ca['sell'].Ac.vals.shape[0]} chunks B1 "
+                         f"{db.ghost_plan[0].numel()} outputs")
+                kept[mode] = (ca, counts)
+            else:  # the solve's share of plan rebuilds and setup
+                pc, pp = prob._pipe_cache, prob._pipe_prec
+                shape = (f" (solve: partition "
+                         f"{pc['timings']['partition_s']:.3f} finalize "
+                         f"{pc['timings']['finalize_s']:.3f} preconditioner "
+                         f"{pp['precond_s']:.3f}, level-1 width "
+                         f"{pp['precond'][0].shape['S']})")
+            launches = {k: counts.get(k, 0) for k in keys}
+            launches["mesh"] = _mesh_key(np, prob.domains[0].mesh, maps)
+            per.append(launches)
+            print(f"AMR {mode} cycle {c}: n_elements={rec['n_elements']} "
+                  f"dofs={rec['n_dofs']} eta={rec['eta']:.12e} gmres="
+                  f"{rec['iters']} s " + " ".join(
+                      f"{k}={v:.3f}" for k, v in rec["seconds"].items())
+                  + f" mesh {launches['mesh'][:12]} hopper_launches="
+                  + str({k: launches[k] for k in keys}) + shape, flush=True)
+            _cuda.reset_launch_counts()
+
+        _cuda.reset_launch_counts()
+        t1 = time.perf_counter()
+        h = adaptive_solve_cycles(
+            build_structured_mesh(2, args.n_amr), f_t, cycles=args.amr_cycles,
+            theta=0.6, params=ParameterList("P", dict(base, **opts)),
+            source_np=f_np, device=dev, callback=cb)
+        _sync(torch, dev)
+        hist[mode] = (h, per, time.perf_counter() - t1)
+        print(f"AMR {mode}: {hist[mode][2]:.3f} s for {args.amr_cycles} "
+              f"cycles", flush=True)
+    # the mixed mode launched B1–B3 in every cycle
+    for c, launches in enumerate(hist["mixed"][1]):
+        _check(all(launches[k] > 0 for k in keys),
+               f"AMR mixed cycle {c} launched B1-B3: {launches}")
+    n_el = {m: [r["n_elements"] for r in hist[m][0]] for m in hist}
+    eta = {m: np.array([r["eta"] for r in hist[m][0]]) for m in hist}
+    key = {m: [p["mesh"] for p in hist[m][1]] for m in hist}
+    for m in ("dist_amr", "mixed"):
+        same = [a == b for a, b in zip(key[m], key["dist"])]
+        print(f"AMR {m} vs dist per cycle: n_elements {n_el[m]} vs "
+              f"{n_el['dist']}, the same mesh up to the {len(maps)} "
+              f"symmetries {same}, eta rel diff "
+              f"{(np.abs(eta[m] - eta['dist']) / eta['dist']).tolist()}",
+              flush=True)
+    _check(key["dist_amr"] == key["dist"]
+           and np.allclose(eta["dist_amr"], eta["dist"], rtol=1e-8, atol=0),
+           "AMR: distributed AMR = distributed refinement, every cycle")
+    # the mixed mode: on every mesh it shares with the distributed run, up
+    # to the problem's symmetries, eta within 1e-8 (up to the first cycle
+    # whose mesh differs: the Dörfler cut can fall inside a group of
+    # exactly tied indicators, which the last bits of u may split into
+    # meshes that are not images of each other)
+    _check(key["mixed"][0] == key["dist"][0],
+           "AMR: the mixed and distributed runs start on one mesh")
+    shared = next((c for c, (a, b) in enumerate(zip(key["mixed"],
+                                                    key["dist"]))
+                   if a != b), len(key["dist"]))
+    print(f"AMR mixed vs dist: the first {shared} of {len(key['dist'])} "
+          f"meshes shared", flush=True)
+    _check(np.allclose(eta["mixed"][:shared], eta["dist"][:shared],
+                       rtol=1e-8, atol=0),
+           "AMR: mixed eta within 1e-8 of the distributed run's on every "
+           "shared mesh")
+    if hold_b123 is not None and "mixed" in kept:
+        ca, counts = kept["mixed"]
+        hold_b123(" (AMR last cycle)", ca["db32"], ca["sell"], ca["prec"],
+                  {k: sum(p[k] for p in hist["mixed"][1]) for k in keys})
+    _phase("14c AMR on the card", t0)
+
+
+def _phase14(torch, np, args, dev, ref13, hold_b123):
+    """Shards on several processes and AMR (see the module docstring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase14a(torch, np, args, dev, ref13)
+    _phase14b(torch, np, args, dev)
+    _phase14c(torch, np, args, dev, hold_b123)
+    _phase("14 ranks and AMR", t0)
 
 
 def _parser():
@@ -2268,8 +2680,9 @@ def _parser():
                     help="shards of the distributed solve")
     ap.add_argument("--n-fsi-gi", type=int, default=32,
                     help="cells per side of each 2D FSI box (GI)")
-    ap.add_argument("--n-pipe-ns", type=int, default=12,
-                    help="cells per side of phase 13b's cavity")
+    ap.add_argument("--n-pipe-ns", type=int, default=8,
+                    help="cells per side of phase 13b's cavity (cut from "
+                         "12 for phase 14's time)")
     ap.add_argument("--pipe-ns-devices", type=int, default=64,
                     help="shards of phase 13b's cavity")
     # at phase 11b's 64 cells the eight solid shards' FaCSI subdomains are
@@ -2287,10 +2700,24 @@ def _parser():
                          "subdomains)")
     ap.add_argument("--pipe-gi-solid", type=int, default=4,
                     help="solid shards of phase 13d")
-    ap.add_argument("--only", choices=["12,13"], default=None,
+    ap.add_argument("--n-amr", type=int, default=128,
+                    help="cells per side of phase 14c's first mesh")
+    ap.add_argument("--amr-cycles", type=int, default=4,
+                    help="phase 14c's cycles (cut from 5: the fifth's "
+                         "distributed set-up took 36-38 s a mode)")
+    ap.add_argument("--amr-devices", type=int, default=16,
+                    help="shards of phase 14c's distributed modes")
+    ap.add_argument("--amr-clusters", type=int, default=64,
+                    help="clusters of phase 14c's mixed-precision mode")
+    ap.add_argument("--amr-tol", type=float, default=1e-12,
+                    help="phase 14c's solve tolerance (eta agrees to about "
+                         "the solves' error: 2e-7 at 1e-10)")
+    ap.add_argument("--rank-timeout", type=float, default=400,
+                    help="seconds each spawned rank of phase 14 may take")
+    ap.add_argument("--only", choices=["12,13", "14"], default=None,
                     help="after the build run phases 12 and 13 alone "
-                         "(phase 12 without its phase 7 comparison; no "
-                         "kernel entries)")
+                         "(phase 12 without its phase 7 comparison), or "
+                         "phase 13a and phase 14; no kernel entries")
     return ap
 
 
@@ -2331,11 +2758,15 @@ def main(argv=None):
             print("  " + line.strip())
     print(f"kernels built: {lib_path}")
     _phase("1 build", t0)
-    if args.only == "12,13":
-        ref12 = _phase12(torch, np, args, dev, None)
-        gc.collect()
-        torch.cuda.empty_cache()
-        _phase13(torch, np, args, dev, ref12)
+    if args.only is not None:
+        if args.only == "12,13":
+            ref12 = _phase12(torch, np, args, dev, None)
+            gc.collect()
+            torch.cuda.empty_cache()
+            _phase13(torch, np, args, dev, ref12)
+        else:
+            _phase14(torch, np, args, dev,
+                     _phase13a(torch, np, args, dev, None), None)
         print(json.dumps({"kernels": []}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -2909,7 +3340,10 @@ def main(argv=None):
     ref12 = _phase12(torch, np, args, dev, ref7)
     gc.collect()
     torch.cuda.empty_cache()
-    _phase13(torch, np, args, dev, ref12)
+    ref13 = _phase13(torch, np, args, dev, ref12)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _phase14(torch, np, args, dev, ref13, hold_b123)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -161,27 +161,26 @@ class DistributedAssembly:
         self.fe_type = mesh.fe_type
 
     def assemble_laplace(self, axis: DeviceAxis) -> torch.Tensor:
-        """Distributed scalar Laplace assembly → [n_dev, L] owned CSR data
-        on the axis' device."""
+        """Distributed scalar Laplace assembly → [n_local, L] owned CSR
+        data of the axis' rank on its device (every shard without ranks)."""
         if self.dofs != 1:
             raise ValueError("assemble_laplace: dofs_per_node=1 only")
         if axis.n_dev != self.n_dev:
             raise ValueError("device axis size != partition count")
-        dev = axis.device
         L, S = self.L, self.S
-        n, E, nv, dim = self.vert_coords.shape
-        vc = torch.as_tensor(self.vert_coords, device=dev)
-        valid = torch.as_tensor(self.valid, device=dev)
+        _, E, nv, dim = self.vert_coords.shape
+        n = axis.n_local
+        vc = axis.put(self.vert_coords)
+        valid = axis.put(self.valid)
         Ke = asm.elem_laplace(vc.view(n * E, nv, dim), self.dim, self.fe_type)
         Ke = Ke.reshape(n, E, -1) * valid[:, :, None]
-        acc = _stacked_segment_sum(
-            Ke.reshape(n, -1), torch.as_tensor(self.seg_ids, device=dev),
-            L + S)
+        acc = _stacked_segment_sum(Ke.reshape(n, -1), axis.ix(self.seg_ids),
+                                   L + S)
         local, send = acc[:, :L], acc[:, L:]
-        buf = axis.all_gather(send)
-        vals = buf.reshape(-1)[torch.as_tensor(self.recv_src, device=dev)]
-        add = _stacked_segment_sum(
-            vals, torch.as_tensor(self.recv_dst, device=dev), L + 1)[:, :L]
+        buf = axis.all_gather(send)  # [n_dev, S]
+        vals = buf.reshape(-1)[axis.ix(self.recv_src)]
+        add = _stacked_segment_sum(vals, axis.ix(self.recv_dst),
+                                   L + 1)[:, :L]
         return local + add
 
     def reference_local_data(self, global_data: np.ndarray) -> np.ndarray:

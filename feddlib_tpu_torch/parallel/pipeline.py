@@ -7,9 +7,11 @@ counterpart of feddlib_tpu/parallel/pipeline.py.
   element contributions (a local slot or a slot of its send buffer), the
   edge-coloured exchange rounds of the send buffers, the ELL layout with
   column-map-local columns, and the SpMV halo plan;
-- the DEVICE runs one plain function over stacked [n_dev, ...] tensors
-  (where the JAX package runs one shard_map program): batched element
-  kernels for every block over the [n_dev · E_max] elements, a
+- the DEVICE runs one plain function over the stacked [n_local, ...]
+  tensors of a process's shards (where the JAX package runs one shard_map
+  program; n_local = n_dev in one process, a rank's range with several —
+  parallel/multihost.py): batched element kernels for every block over
+  the [n_local · E_max] elements, a
   deterministic stacked segment sum into (local slots ++ send buffer), the
   neighbour-wise `ppermute` rounds of the send buffers, a second segment
   sum of what they deliver, and a gather into each shard's ELL values — a
@@ -49,11 +51,12 @@ from feddlib_tpu_torch.parallel.assembly import (_stacked_segment_sum,
                                                  stacked_segment_plan)
 from feddlib_tpu_torch.parallel.spmd import (DeviceAxis, DistributedCsr,
                                              HaloPlan, _col_local_ids,
-                                             _pad_stack, lane_index)
+                                             _pad_stack, lane_index,
+                                             local_lanes)
 
 f64 = torch.float64
 
-# elements per chunk of the batched element kernels over [n_dev · E_max]:
+# elements per chunk of the batched element kernels over [n_local · E_max]:
 # the plain kinds, and the kinds differentiated per element (torch.func),
 # whose jacfwd / hessian temporaries are larger (as fe/shape_derivatives.py
 # and problems/nonlin_elasticity.py chunk them)
@@ -337,8 +340,11 @@ class DistributedPipeline:
         pipe.add_block(1, 0, "divergence")
         pipe.finalize(axis)
         dmat = pipe.assemble()            # DistributedCsr on the device
-        b    = pipe.assemble_rhs({0: f})  # [n_dev, N_o]
+        b    = pipe.assemble_rhs({0: f})  # [n_local, N_o]
         dmat, b = pipe.apply_dirichlet(dmat, b, mask, g)
+
+    The plans are built for every shard on the host (replicated on every
+    rank); the device tensors are the axis' rank's rows [n_local, ...].
     """
 
     #: host→device uploads through this pipeline (a device-resident
@@ -504,8 +510,10 @@ class DistributedPipeline:
 
     # -- symbolic phase --------------------------------------------------------
     def finalize(self, axis: Optional[DeviceAxis] = None) -> None:
-        """Build every plan on the host and upload it.  `self.timings`
-        holds the seconds of each part."""
+        """Build every plan on the host and upload the axis' rank's rows
+        (every shard without ranks; the default axis is
+        `multihost.global_device_axis`).  `self.timings` holds the seconds of
+        each part."""
         if self._final:
             return
         tm = self.timings
@@ -513,12 +521,15 @@ class DistributedPipeline:
         n_dev = self.n_dev
         owner = self.dof_map.owner_of()
         n_total = self.dof_map.n_global
-        self.axis = axis or DeviceAxis.make(n_dev, self._device_arg)
+        if axis is None:
+            from feddlib_tpu_torch.parallel import multihost
+
+            axis = multihost.global_device_axis(n_dev, self._device_arg)
+        self.axis = axis
         if self.axis.n_dev != n_dev:
             raise ValueError("device axis size != the pipeline's shards")
         dev = self.device = self.axis.device
-        ix = lambda a: torch.as_tensor(a, dtype=torch.int64,  # noqa: E731
-                                       device=dev)
+        ix = self.axis.ix  # this rank's rows of a stacked host plan
         n_mesh = self._n_meshes()
 
         # ------- global symbolic COO (integers only) ------------------------
@@ -560,7 +571,7 @@ class DistributedPipeline:
                 sel = co == p
                 slots = np.searchsorted(loc_patterns[p], coo_keys[sel])
                 np.add.at(cdense[p], slots, coo_vals[sel])
-        self.const_vals = torch.as_tensor(cdense, device=dev)
+        self.const_vals = self.axis.put(cdense)
         t2 = time.perf_counter()
         tm["patterns_s"] = t2 - t1
 
@@ -667,13 +678,12 @@ class DistributedPipeline:
         self.ell_src = ix(ell_src)
         # plan-static Dirichlet diagonal: the owned diagonal entry of each
         # row where the row holds one
-        self._diag = torch.as_tensor(
-            (ell_cols == np.arange(N_o)[None, None, :]) & (ell_src != self.L),
-            device=dev)
+        self._diag = self.axis.put(
+            (ell_cols == np.arange(N_o)[None, None, :]) & (ell_src != self.L))
         self.col_gids = col_gids
         t5 = time.perf_counter()
         tm["ell_s"] = t5 - t4
-        self.plan = HaloPlan(self.dof_map, col_gids, device=dev)
+        self.plan = HaloPlan(self.dof_map, col_gids, axis=self.axis)
         t6 = time.perf_counter()
         tm["halo_s"] = t6 - t5
 
@@ -686,7 +696,7 @@ class DistributedPipeline:
             valid = np.zeros((n_dev, E_max_m[m]))
             for q in range(n_dev):
                 valid[q, : len(self._eids(q, m))] = 1.0
-            self.mesh_valid.append(torch.as_tensor(valid, device=dev))
+            self.mesh_valid.append(self.axis.put(valid))
         self.vert_coords = self.mesh_vc[0]
         self.valid = self.mesh_valid[0]
 
@@ -711,7 +721,7 @@ class DistributedPipeline:
             for q in range(n_dev):
                 eids = self._eids(q, blk.mesh)
                 out[q, : len(eids)] = wt_e[eids]
-            self.row_wts[bi] = torch.as_tensor(out, device=dev)
+            self.row_wts[bi] = self.axis.put(out)
 
         # per-element static data ("elem_data" param) per block
         self.elem_data = {}
@@ -724,7 +734,7 @@ class DistributedPipeline:
             for q in range(n_dev):
                 eids = self._eids(q, blk.mesh)
                 out[q, : len(eids)] = wd[eids]
-            self.elem_data[bi] = torch.as_tensor(out, device=dev)
+            self.elem_data[bi] = self.axis.put(out)
         t7 = time.perf_counter()
         tm["geometry_s"] = t7 - t6
 
@@ -756,7 +766,7 @@ class DistributedPipeline:
             rd = (nodes[:, None] * dofs + np.arange(dofs)[None, :]).reshape(-1)
             owned = bmap.partition_indices[q]
             rep_dofs.append(np.concatenate([owned, np.setdiff1d(rd, owned)]))
-        fplan = HaloPlan(bmap, rep_dofs, device=self.device)
+        fplan = HaloPlan(bmap, rep_dofs, axis=self.axis)
         N_ob = fplan.N_o
         # per shard: positions of owned block-b dofs inside the merged owned
         # list, and element-node gather indices into the field column
@@ -777,21 +787,19 @@ class DistributedPipeline:
                     N_ob).reshape(ed.shape)
         mask = (np.arange(N_ob)[None, :]
                 < bmap.local_sizes[:, None]).astype(np.float64)
-        dev = self.device
+        put = self.axis.put
         self.field_plans[b] = dict(
-            plan=fplan,
-            pos=torch.as_tensor(pos, device=dev),
-            mask=torch.as_tensor(mask, device=dev),
-            elem_idx=torch.as_tensor(eidx, device=dev),
+            plan=fplan, pos=put(pos), mask=put(mask), elem_idx=put(eidx),
             dofs=dofs)
 
     # -- numeric phase ---------------------------------------------------------
     def _program(self):
-        """Build (once) the assembly function over stacked tensors:
-        f(x, vcs, exts) → ell_data [n_dev, K, N_o]."""
+        """Build (once) the assembly function over the rank's stacked
+        tensors: f(x, vcs, exts) → ell_data [n_local, K, N_o]."""
         if self._prog is not None:
             return self._prog
-        L, S, K, N_o, n = self.L, self.S, self.K, self.N_o, self.n_dev
+        L, S, K, N_o = self.L, self.S, self.K, self.N_o
+        n = self.axis.n_local
         evals = []
         for blk in self.blocks:
             dom_i, _ = self.variables[blk.i]
@@ -870,17 +878,17 @@ class DistributedPipeline:
                  vert_coords: Optional[Dict[int, torch.Tensor]] = None
                  ) -> DistributedCsr:
         """Run the assembly on the device → DistributedCsr.  `x` is the
-        merged distributed solution [n_dev, N_o] (for the field blocks),
+        merged distributed solution [n_local, N_o] (for the field blocks),
         zeros if omitted.  `ext_fields` maps external field names (blocks
         registered with field_src='ext:<name>') to OWNED per-variable
-        arrays [n_dev, N_ob] (`distribute_field`); `vert_coords`
-        optionally overrides a mesh's vertex coordinates [n_dev, E_max_m,
-        nv, dim] (moved / ALE meshes, `mesh_vert_coords`)."""
+        arrays [n_local, N_ob] (`distribute_field`); `vert_coords`
+        optionally overrides a mesh's vertex coordinates [n_local,
+        E_max_m, nv, dim] (moved / ALE meshes, `mesh_vert_coords`)."""
         if not self._final:
             self.finalize()
         f = self._program()
         if x is None:
-            x = torch.zeros(self.n_dev, self.N_o, dtype=f64,
+            x = torch.zeros(self.axis.n_local, self.N_o, dtype=f64,
                             device=self.device)
         for nm in self._ext_names:
             if ext_fields is None or nm not in ext_fields:
@@ -894,7 +902,7 @@ class DistributedPipeline:
             ell_cols_host=self.ell_cols_host)
 
     def mesh_vert_coords(self, m: int, points) -> torch.Tensor:
-        """[n_dev, E_max_m, nv, dim] vertex coordinates of mesh m from an
+        """[n_local, E_max_m, nv, dim] vertex coordinates of mesh m from an
         overriding point set (moved / ALE meshes) — feed to
         assemble(vert_coords={m: ...}).  The symbolic plans are
         coordinate-independent, so nothing is rebuilt.  Pad elements take
@@ -903,18 +911,19 @@ class DistributedPipeline:
         msh = mp.mesh
         nv = msh.vertices_per_element
         pts = np.asarray(points)
-        vc = np.zeros((self.n_dev, self.E_max_m[m], nv, msh.dim))
-        for q in range(self.n_dev):
+        lo, hi = self.axis.lo, self.axis.hi
+        vc = np.zeros((hi - lo, self.E_max_m[m], nv, msh.dim))
+        for q in range(lo, hi):
             eids = self._eids(q, m)
             Eq = len(eids)
             if Eq:
-                vc[q, :Eq] = pts[msh.elements[eids][:, :nv]]
-            vc[q, Eq:] = pts[msh.elements[0][:nv]]
+                vc[q - lo, :Eq] = pts[msh.elements[eids][:, :nv]]
+            vc[q - lo, Eq:] = pts[msh.elements[0][:nv]]
         return torch.as_tensor(vc, device=self.device)
 
     # -- RHS -------------------------------------------------------------------
     def assemble_rhs(self, sources: Dict[int, Callable]) -> torch.Tensor:
-        """Volume sources per block → merged distributed RHS [n_dev, N_o]
+        """Volume sources per block → merged distributed RHS [n_local, N_o]
         (host-side one-shot setup).  f(x) → scalar (dofs=1) or [dofs], x
         component-first as fe/assembly.py passes it."""
         if not self._final:
@@ -947,7 +956,7 @@ class DistributedPipeline:
                     loc = np.searchsorted(self.dof_map.partition_indices[g],
                                           sel)
                     out[g, loc] += contrib[sel]
-        return torch.as_tensor(out, device=self.device)
+        return self.axis.put(out)
 
     # -- device-side RHS (volume + Neumann surface loads) ---------------------
     def add_rhs(self, b: int, fn: Callable) -> None:
@@ -973,7 +982,7 @@ class DistributedPipeline:
             self.finalize()
         n_dev, dev = self.n_dev, self.device
         owner = self.dof_map.owner_of()
-        geo = []  # per def: (vc [n_dev, Emax, nv, dim], valid, dofs)
+        geo = []  # per def: (vc [n_local, Emax, nv, dim], valid, dofs)
         dof_lists = [[] for _ in range(n_dev)]  # per shard: per-def dofs
         for b, fn, flag in self._rhs_defs:
             dom, dofs = self.variables[b]
@@ -1022,8 +1031,8 @@ class DistributedPipeline:
                               + np.arange(dofs)[None, None, :])
                         rows[q, :Sq] = sd.reshape(Sq, -1) + off
                     vcn[q, Sq:] = pad_pts
-                vc = torch.as_tensor(vcn, device=dev)
-                valid = torch.as_tensor(validn, device=dev)
+                vc = self.axis.put(vcn)
+                valid = self.axis.put(validn)
             geo.append((vc, valid, dofs))
             for q in range(n_dev):
                 dof_lists[q].append(rows[q].reshape(-1))
@@ -1053,23 +1062,25 @@ class DistributedPipeline:
         r_meta, r_sidx, r_rdst = _exchange_rounds(
             send_keys, lambda sk: owner[sk],
             lambda p, sk: np.searchsorted(owned_lists[p], sk), n_dev, N_o)
-        ix = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        ix = self.axis.ix
+        seg = ix(seg_stacked)
+        xc_rdst = [ix(a) for a in r_rdst]
         self._rhs_meta = dict(
-            geo=geo, seg=ix(seg_stacked),
-            seg_plan=stacked_segment_plan(seg_stacked, N_o + S_r + 1, dev),
+            geo=geo, seg=seg,
+            seg_plan=stacked_segment_plan(seg, N_o + S_r + 1, dev),
             xc_meta=r_meta, xc_sidx=[ix(a) for a in r_sidx],
-            xc_rdst=[ix(a) for a in r_rdst],
+            xc_rdst=xc_rdst,
             xc_src=[self.axis.perm_source(p) for p, _ in r_meta],
-            xc_plan=(stacked_segment_plan(np.concatenate(r_rdst, 1),
-                                          N_o + 1, dev) if r_meta else None),
+            xc_plan=(stacked_segment_plan(torch.cat(xc_rdst, 1), N_o + 1,
+                                          dev) if r_meta else None),
             S_r=S_r)
         return self._rhs_meta
 
     def assemble_rhs_device(self, t: float = 0.0) -> torch.Tensor:
-        """The device RHS at time t → [n_dev, N_o]: the plans are built
+        """The device RHS at time t → [n_local, N_o]: the plans are built
         once, each step re-runs the element loads and the exchange."""
         meta = self._rhs_plans()
-        n, N_o, S_r = self.n_dev, self.N_o, meta["S_r"]
+        n, N_o, S_r = self.axis.n_local, self.N_o, meta["S_r"]
         t = float(t)
         flats = []
         for (b, fn, flag), (vc, valid, dofs) in zip(self._rhs_defs,
@@ -1101,10 +1112,11 @@ class DistributedPipeline:
 
     # -- boundary conditions -----------------------------------------------------
     def _lanes(self):
-        """(gids, lanes) of the merged dof map as device index tensors."""
+        """(gids, lanes) of the merged dof map on the axis' rank as device
+        index tensors."""
         cached = getattr(self, "_lane_t", None)
         if cached is None:
-            gids, lanes = lane_index(self.dof_map, self.N_o)
+            gids, lanes = local_lanes(self.dof_map, self.N_o, self.axis)
             cached = (torch.as_tensor(gids, device=self.device),
                       torch.as_tensor(lanes, device=self.device))
             self._lane_t = cached
@@ -1112,9 +1124,10 @@ class DistributedPipeline:
 
     def dirichlet_arrays(self, mask_global, g_global=None):
         """Distribute a merged Dirichlet mask (and values) to the owner
-        shards: (mask [n_dev, N_o] f64 0/1, g [n_dev, N_o])."""
+        shards: (mask [n_local, N_o] f64 0/1, g [n_local, N_o])."""
         gids, lanes = self._lanes()
-        n = self.n_dev * self.N_o
+        n_loc = self.axis.n_local
+        n = n_loc * self.N_o
 
         def spread(v):
             v = torch.as_tensor(np.asarray(v, dtype=np.float64)
@@ -1122,7 +1135,7 @@ class DistributedPipeline:
                                 dtype=f64, device=self.device)
             out = torch.zeros(n, dtype=f64, device=self.device)
             out[lanes] = v[gids]
-            return out.view(self.n_dev, self.N_o)
+            return out.view(n_loc, self.N_o)
 
         m = spread(mask_global)
         g = (spread(g_global) if g_global is not None
@@ -1173,7 +1186,7 @@ class DistributedPipeline:
         return specs
 
     def distribute_field(self, b: int, xb) -> torch.Tensor:
-        """Block-b global vector → per-shard OWNED field array [n_dev,
+        """Block-b global vector → per-shard OWNED field array [n_local,
         N_ob] (the layout assemble(ext_fields=...) expects)."""
         if b not in self.field_plans:
             raise ValueError(f"variable {b} has no field plan")
@@ -1181,7 +1194,8 @@ class DistributedPipeline:
         fp = self.field_plans[b]
         lanes = fp.get("lanes")
         if lanes is None:
-            gids, ln = lane_index(self._var_gmap(b), fp["plan"].N_o)
+            gids, ln = local_lanes(self._var_gmap(b), fp["plan"].N_o,
+                                   self.axis)
             lanes = fp["lanes"] = (torch.as_tensor(gids, device=self.device),
                                    torch.as_tensor(ln, device=self.device))
         return self._scatter(xb, lanes, fp["plan"].N_o)
@@ -1190,26 +1204,33 @@ class DistributedPipeline:
         gids, ln = lanes
         xg = torch.as_tensor(xg if torch.is_tensor(xg) else np.asarray(xg),
                              dtype=f64, device=self.device)
-        out = torch.zeros(self.n_dev * width, dtype=f64, device=self.device)
+        n_loc = self.axis.n_local
+        out = torch.zeros(n_loc * width, dtype=f64, device=self.device)
         out[ln] = xg[gids]
-        return out.view(self.n_dev, width)
+        return out.view(n_loc, width)
 
     # -- vector helpers ----------------------------------------------------------
     def distribute(self, x_global) -> torch.Tensor:
-        """Global merged vector (host or device) → owned shards [n_dev,
+        """Global merged vector (host or device) → owned shards [n_local,
         N_o] on the device; counts one upload."""
         self.n_distributes += 1
         return self._scatter(x_global, self._lanes(), self.N_o)
 
     def gather(self, x_dist: torch.Tensor) -> torch.Tensor:
-        """Owned shards [n_dev, N_o] → the global merged vector, on the
-        shards' device."""
+        """Owned shards [n_local, N_o] → the global merged vector, on the
+        shards' device; with ranks every rank gets all of it (every rank
+        must call it)."""
         gids, lanes = self._lanes()
+        if self.axis.group is not None:
+            x_dist = self.axis.all_gather(x_dist)
+            g, ln = lane_index(self.dof_map, self.N_o)
+            gids, lanes = (torch.as_tensor(a, device=self.device)
+                           for a in (g, ln))
         out = x_dist.new_zeros(self.dof_map.n_global)
         out[gids] = x_dist.reshape(-1)[lanes]
         return out
 
     def collect(self, x_dist) -> np.ndarray:
-        """Owned shards [n_dev, N_o] → global vector (host numpy)."""
+        """Owned shards [n_local, N_o] → global vector (host numpy)."""
         return self.gather(torch.as_tensor(x_dist, device=self.device)
                            ).cpu().numpy()

@@ -2,11 +2,13 @@
 feddlib_tpu/parallel/solve.py.
 
 The JAX package runs cg_loop / gmres_loop inside one shard_map program,
-with every dot a psum of the shards' local dots.  With the shards stacked on
-one device that dot is the dot of the flattened [n_dev·N_o] vectors (the
-padded lanes are zero), so the port's own loops (solvers/krylov.py) run on
-the flattened stacked vector, with A = halo import + batched ELL matvec and
-M = the built preconditioner, both on the [n_dev, N_o] view.
+with every dot a psum of the shards' local dots.  The port's own loops
+(solvers/krylov.py) run on the flattened [n_local·N_o] vector of a
+process's shards (the padded lanes are zero), with A = halo import +
+batched ELL matvec and M = the built preconditioner, both on the
+[n_local, N_o] view; each dot is the process's dot, summed over the ranks
+by the axis when several processes share the shard axis (the loops'
+`axis`).  In one process the arithmetic is the flattened dot's.
 """
 
 from __future__ import annotations
@@ -23,19 +25,26 @@ class DistributedSolver:
     """Bundles a DistributedCsr and its shard axis into solve methods.
 
     A preconditioner is given as (build, arrays): build(arrays, ctx) → M,
-    a callable on stacked [n_dev, N_o] residuals, where ctx = (ell_data,
-    ell_cols, owned_mask, import_fn, export_fn) carries the matrix slices
-    and the halo exchange."""
+    a callable on the rank's [n_local, N_o] residuals, where ctx =
+    (ell_data, ell_cols, owned_mask, import_fn, export_fn) carries the
+    matrix slices and the halo exchange."""
 
     def __init__(self, dmat: DistributedCsr,
                  axis: Optional[DeviceAxis] = None):
         self.dmat = dmat
-        self.axis = axis or DeviceAxis(dmat.n_dev, dmat.device)
+        self.axis = axis or dmat.axis
         if self.axis.n_dev != dmat.n_dev:
             raise ValueError("device axis size != matrix partition count")
+        n_loc = dmat.ell_data.shape[0]
+        if (self.axis.n_local != n_loc
+                or (self.axis.lo, self.axis.hi) != (dmat.axis.lo,
+                                                    dmat.axis.hi)):
+            raise ValueError(f"axis holds shards [{self.axis.lo}, "
+                             f"{self.axis.hi}), the matrix {n_loc} from "
+                             f"[{dmat.axis.lo}, {dmat.axis.hi})")
 
     def operators(self, precond=None):
-        """(A, M) on stacked [n_dev, N_o] tensors; M is None for no
+        """(A, M) on the rank's [n_local, N_o] tensors; M is None for no
         preconditioner.  precond: None | "jacobi" | (build, arrays)."""
         dm = self.dmat
         plan = dm.plan
@@ -60,9 +69,9 @@ class DistributedSolver:
               x0: Optional[torch.Tensor] = None, method: str = "cg",
               tol: float = 1e-8, maxiter: int = 1000, restart: int = 100,
               precond=None):
-        """b_dist [n_dev, N_o] stacked owned RHS → (x_dist, iters, relres).
+        """b_dist [n_local, N_o] owned RHS → (x_dist, iters, relres).
 
-        precond: None | "jacobi" | (build_fn, [stacked arrays])."""
+        precond: None | "jacobi" | (build_fn, [arrays])."""
         shape = b_dist.shape
         A2, M2 = self.operators(precond)
 
@@ -73,15 +82,17 @@ class DistributedSolver:
              else (lambda v: M2(v.view(shape)).reshape(-1)))
         b = b_dist.reshape(-1)
         x0 = torch.zeros_like(b) if x0 is None else x0.reshape(-1)
+        ax = self.axis
         if method == "cg":
-            x, it, rel, _ = cg_loop(A, M, b, x0, tol, maxiter)
+            x, it, rel, _ = cg_loop(A, M, b, x0, tol, maxiter, axis=ax)
         else:
-            x, it, rel, _ = gmres_loop(A, M, b, x0, tol, restart, maxiter)
+            x, it, rel, _ = gmres_loop(A, M, b, x0, tol, restart, maxiter,
+                                       axis=ax)
         return x.view(shape), int(it), float(rel)
 
 
 def _jacobi_diag(dm: DistributedCsr) -> torch.Tensor:
-    """[n_dev, N_o] inverse diagonal (0 on padding)."""
+    """[n_local, N_o] inverse diagonal (0 on padding)."""
     N_o = dm.plan.N_o
     # the column-map local id of owned row i is i itself
     is_diag = dm.ell_cols == torch.arange(N_o, device=dm.device)

@@ -168,8 +168,8 @@ def _field_subdomains(dmat, lo: int, hi: int, overlap: int,
     owned field dofs grown `overlap` layers through the FIELD subgraph;
     `ident_rows` (global ids) become identity rows inside every subdomain
     block (the fluid's interface-velocity condensation).  Returns (inv
-    [n_dev, S, S], ov_col [n_dev, S] plan-local restriction ids, own_pos
-    [n_dev, N_o] scatter of the subdomain solutions to owned dofs (pad →
+    [n_local, S, S], ov_col [n_local, S] plan-local restriction ids,
+    own_pos [n_local, N_o] scatter of the subdomain solutions to owned dofs (pad →
     S), HaloPlan, factorize(vals_flat) → a new inv)."""
     from feddlib_tpu_torch.la.dense_blocks import (_parallel_map,
                                                    _robust_inverse)
@@ -197,7 +197,9 @@ def _field_subdomains(dmat, lo: int, hi: int, overlap: int,
                                 np.setdiff1d(ov_sets[p],
                                              unique_map.partition_indices[p])])
                 for p in range(n_dev)]
-    plan = HaloPlan(unique_map, col_gids, device=dev)
+    axis = dmat.axis
+    plan = HaloPlan(unique_map, col_gids, axis=axis)
+    a_lo, a_hi = axis.lo, axis.hi  # this rank's shards
 
     subs = []  # per shard: COO (row, col, slot) of its subdomain block
     for p in range(n_dev):
@@ -212,7 +214,7 @@ def _field_subdomains(dmat, lo: int, hi: int, overlap: int,
             subs.append(None)
 
     def factorize(vals_flat):
-        inv = np.zeros((n_dev, S, S))
+        inv = np.zeros((a_hi - a_lo, S, S))
 
         def one(p):
             k = len(ov_sets[p])
@@ -225,10 +227,10 @@ def _field_subdomains(dmat, lo: int, hi: int, overlap: int,
                     vals = np.where(ident_on,
                                     (row == col).astype(np.float64), vals)
                 block[row, col] = vals
-            inv[p] = _robust_inverse(block)
+            inv[p - a_lo] = _robust_inverse(block)
 
         # each block is independent: LAPACK releases the GIL
-        _parallel_map(one, range(n_dev))
+        _parallel_map(one, range(a_lo, a_hi))
         return torch.as_tensor(inv, device=dev)
 
     ov_col = np.zeros((n_dev, S), dtype=np.int64)
@@ -244,13 +246,14 @@ def _field_subdomains(dmat, lo: int, hi: int, overlap: int,
         # restricted prolongation: owned field dofs ← their subdomain slot
         mine = (owned >= lo) & (owned < hi)
         own_pos[p, np.flatnonzero(mine)] = np.searchsorted(ov, owned[mine])
-    return (factorize(vals_flat), torch.as_tensor(ov_col, device=dev),
-            torch.as_tensor(own_pos, device=dev), plan, factorize)
+    return (factorize(vals_flat), axis.put(ov_col), axis.put(own_pos),
+            plan, factorize)
 
 
 def _scatter_plan(unique_map, gids: np.ndarray, slots: np.ndarray,
-                  N_o: int, n_slots: int, device):
-    """Per-shard (src [n_dev, W], dst [n_dev, W]) plans: shard p pulls its
+                  N_o: int, n_slots: int, axis):
+    """Per-shard (src [n_local, W], dst [n_local, W]) plans of the axis'
+    rank: shard p pulls its
     OWNED entries of `gids` from local position src (pad → N_o, a zero
     slot of the extended vector) and puts them at `slots` of an
     interface-sized accumulator (pad → the n_slots dump)."""
@@ -270,8 +273,7 @@ def _scatter_plan(unique_map, gids: np.ndarray, slots: np.ndarray,
     for p in range(n_dev):
         src[p, : len(src_l[p])] = src_l[p]
         dst[p, : len(dst_l[p])] = dst_l[p]
-    return (torch.as_tensor(src, device=device),
-            torch.as_tensor(dst, device=device))
+    return axis.put(src), axis.put(dst)
 
 
 def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
@@ -282,8 +284,8 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
     Each shard holds ONE overlapping subdomain per field (its owned field
     rows grown through the field subgraph — shards of the other mesh's
     range hold empty identity blocks), and the interface condensation
-    rides two `DeviceAxis.psum`s of interface-sized vectors (O(n_Γ), not
-    a global gather):
+    rides two psums over the matrix's axis of interface-sized vectors
+    (O(n_Γ), not a global gather):
 
       0. z_g  = G̃⁻¹ r_g                       (five-field GI only)
       1. z_d  = S̃_d⁻¹ r_d                    (solid restricted Schwarz)
@@ -296,7 +298,7 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
     triple (block-local).  `build.refresh(dmat_new)` gives new arrays for
     new values on the same pattern (only the factors are recomputed);
     `build.timings` holds the setup seconds."""
-    from feddlib_tpu_torch.parallel.spmd import DeviceAxis, DistributedCsr
+    from feddlib_tpu_torch.parallel.spmd import DistributedCsr
 
     t0 = time.perf_counter()
     o = [int(v) for v in offsets[:6]]
@@ -304,7 +306,6 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
     n_lam = o[4] - o[3]
     unique_map = dmat.unique_map
     N_o = dmat.plan.N_o
-    dev = dmat.device
     vals_flat = dmat.values_host()
 
     uf_glob = np.asarray(uf_cols, np.int64) + o[0]
@@ -322,8 +323,10 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
         inv_g, ovcol_g, gpos, plan_g, fact_g = _field_subdomains(
             dmat, o[4], o[5], overlap, vals_flat)
 
+    axis = dmat.axis
+
     def sp(gids):
-        return _scatter_plan(unique_map, gids, slot, N_o, n_lam, dev)
+        return _scatter_plan(unique_map, gids, slot, N_o, n_lam, axis)
 
     src_lam, dst_lam = sp(lam_glob)
     src_ds, dst_ds = sp(ds_glob)
@@ -364,7 +367,7 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
             acc.scatter_add_(1, dst_lam, torch.gather(rex, 1, src_lam))
             acc.scatter_add_(1, dst_ds,
                              torch.gather(zdx, 1, src_ds) * inv_dt)
-            uG = _ext1(DeviceAxis.psum(acc[:, :n_lam]))
+            uG = _ext1(axis.psum(acc[:, :n_lam]))
             # 3) fluid solve with interface rows ≡ I, r̂|Γ = uΓ
             rhat = rex.scatter(1, src_uf, uG[dst_uf])[:, :N_o]
             zf = sub_solve(1, rhat)
@@ -377,7 +380,7 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
             resu = rex - _ext(y)
             acc2 = r.new_zeros(n, n_lam + 1).scatter_add_(
                 1, dst_uf, torch.gather(resu, 1, src_uf))
-            zl = _ext1(DeviceAxis.psum(acc2[:, :n_lam]))
+            zl = _ext1(axis.psum(acc2[:, :n_lam]))
             zl = r.new_zeros(n, N_o + 1).scatter(
                 1, src_lam, zl[dst_lam])[:, :N_o]
             return (zd + zf + zl) * mask

@@ -607,21 +607,25 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
     systems pass `blocks`, the per-block specs of GDSWCoarseOperator.
 
     Coarse solver: 'dense' (A₀⁻¹), 'sparse' (the sparse LU of A₀) or
-    'iterative' (GMRES to `coarse_tol` on the ELL of A₀).  Shards stacked
-    on one device hold one copy of what the JAX package replicates (A₀⁻¹,
-    the factors, the ELL of A₀): the coarse residual is the same on every
-    shard, so it is solved once per apply and the result broadcast — the
-    JAX package's result, without its n_dev copies.  The placement options
-    of the reference's Distribution sublist (coarse_procs = k > 0 shards
-    over the first k, coarse_ranks = k > 0 over the last k, which must own
-    no matrix rows: IndexMap.with_free_parts) are validated but give the
-    same single coarse solve: row placement matters only once shards sit on
-    several cards (ROADMAP A10c).
+    'iterative' (GMRES to `coarse_tol` on the ELL of A₀).  The shards of a
+    process hold one copy of what the JAX package replicates (A₀⁻¹, the
+    factors, the ELL of A₀): the coarse residual (a psum over the axis) is
+    the same on every shard, so each process solves it once per apply —
+    the JAX package's result, without its n_dev copies.  The placement
+    options of the reference's Distribution sublist (coarse_procs = k > 0
+    shards over the first k, coarse_ranks = k > 0 over the last k, which
+    must own no matrix rows: IndexMap.with_free_parts) choose, with several
+    processes, the ranks that own those shards: the first of them solves
+    and broadcasts the coarse solution to every rank.  In one process the
+    placement gives the same single coarse solve.
+
+    The host setup (Φ, A₀) is replicated on every rank from the gathered
+    rows; each rank keeps its shards' level-1 factors and compact Φ.
 
     Returns (build_fn, arrays); `build_fn.timings` adds "gdsw_s" (Φ and
     A₀), "phi_s" (the compact Φ) and "coarse_s" (the coarse solver's setup)
     to the level-1 seconds, and `build_fn.shape` adds nc and C_loc."""
-    from feddlib_tpu_torch.parallel.spmd import DeviceAxis, DistributedCsr
+    from feddlib_tpu_torch.parallel.spmd import DistributedCsr
     from feddlib_tpu_torch.precond.schwarz import distributed_schwarz
 
     build1, arrays1 = distributed_schwarz(dmat, overlap=overlap,
@@ -629,6 +633,8 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
     n1 = len(arrays1)
     umap = dmat.unique_map
     n_dev, dev = dmat.n_dev, dmat.device
+    axis = dmat.axis
+    lo, hi = axis.lo, axis.hi
     if coarse_ranks < 0 or coarse_ranks >= n_dev:
         raise ValueError("coarse_ranks must be in [0, n_dev)")
     if coarse_ranks:
@@ -662,17 +668,24 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
         sup.append(np.unique(phi[owned].indices) if len(owned)
                    else np.zeros(0, np.int64))
     C_loc = max(max((len(s) for s in sup), default=1), 1)
-    phi_comp = np.zeros((n_dev, N_o, C_loc))
-    cids = np.full((n_dev, C_loc), nc, np.int64)  # pad → zero slot nc
-    for p in range(n_dev):
+    # this rank's shards [lo, hi)
+    phi_comp = np.zeros((hi - lo, N_o, C_loc))
+    cids = np.full((hi - lo, C_loc), nc, np.int64)  # pad → zero slot nc
+    for p in range(lo, hi):
         owned = umap.partition_indices[p]
         s = sup[p]
-        cids[p, : len(s)] = s
+        cids[p - lo, : len(s)] = s
         if len(owned):
             sub = phi[owned].tocoo()
-            phi_comp[p, sub.row, np.searchsorted(s, sub.col)] = sub.data
+            phi_comp[p - lo, sub.row, np.searchsorted(s, sub.col)] = sub.data
     arrays = list(arrays1) + [torch.as_tensor(phi_comp, device=dev),
                               torch.as_tensor(cids, device=dev)]
+    # the coarse solve's placement across ranks: None = every rank solves
+    root = None
+    if axis.group is not None and (coarse_procs or coarse_ranks):
+        named = (range(coarse_procs) if coarse_procs
+                 else range(n_dev - coarse_ranks, n_dev))
+        root = min(axis.rank_of(p) for p in named)
     t2 = time.perf_counter()
 
     if coarse_solver == "sparse":
@@ -693,8 +706,8 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
         arrays += [torch.as_tensor(evals, device=dev),
                    torch.as_tensor(ecols, device=dev)]
     else:
-        # one [nc, nc] copy, seen by every shard
-        arrays.append(coarse.A0_inv.expand(n_dev, nc, nc))
+        # one [nc, nc] copy, seen by every shard of the rank
+        arrays.append(coarse.A0_inv.expand(hi - lo, nc, nc))
     t3 = time.perf_counter()
 
     def build(prec_arrays, ctx):
@@ -729,11 +742,15 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
             return solver_arrs[0][0] @ rc
 
         def coarse_corr(r):
-            q = torch.einsum("pnc,pn->pc", phi_p, r)          # [n_dev, C_loc]
-            rc = DeviceAxis.psum(q.new_zeros(q.shape[0], nc + 1).scatter_(
+            q = torch.einsum("pnc,pn->pc", phi_p, r)        # [n_local, C_loc]
+            rc = axis.psum(q.new_zeros(q.shape[0], nc + 1).scatter_(
                 1, cid, q))[:nc]
-            zc = solve_A0(rc)
-            zg = torch.cat([zc, zc.new_zeros(1)])[cid]          # [n_dev, C_loc]
+            if root is None:
+                zc = solve_A0(rc)
+            else:  # solved on the first rank of the named shards
+                zc = axis.broadcast(solve_A0(rc) if axis.rank == root
+                                    else rc.new_empty(nc), root)
+            zg = torch.cat([zc, zc.new_zeros(1)])[cid]        # [n_local, C_loc]
             return torch.einsum("pnc,pc->pn", phi_p, zg)
 
         def M(r):

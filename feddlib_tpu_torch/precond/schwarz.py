@@ -227,6 +227,10 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
     `_robust_inverse`), "sparse" (the batched sparse LU of every shard at
     once) or "device" (the blocks scattered on the device, a diagonal
     guard, one batched inverse).  The apply is batched over the shard axis.
+    The overlap sets and plans are built for every shard on the host
+    (replicated on every rank); a rank factors and keeps only its own
+    shards' blocks (the matrix values of the others come from
+    `values_host`, gathered once).
 
     Returns (build_fn, arrays) for DistributedSolver.solve(precond=...);
     `build_fn.timings` holds the setup seconds ("overlap_s": the overlap
@@ -244,6 +248,8 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
         raise ValueError(f"unknown factor {factor!r}")
     t0 = time.perf_counter()
     dev = dmat.device
+    axis = dmat.axis
+    lo, hi = axis.lo, axis.hi
     unique_map = dmat.unique_map
     n_dev, N_o = dmat.n_dev, dmat.plan.N_o
     loc = dmat.locator()
@@ -264,7 +270,7 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
     ovplan = HaloPlan(unique_map,
                       [np.concatenate([unique_map.partition_indices[p],
                                        extras[p]]) for p in range(n_dev)],
-                      device=dev)
+                      axis=axis)
     G_ov = ovplan.G
     t_plan = time.perf_counter()
 
@@ -277,7 +283,8 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
         owned = unique_map.partition_indices[p]
         ov = ov_sets[p]
         k = len(ov)
-        subs.append(loc[ov][:, ov].tocoo())
+        if lo <= p < hi:  # this rank's subdomain blocks
+            subs.append(loc[ov][:, ov].tocoo())
         # overlap gids → overlap-plan column-local ids
         ov_col[p, :k] = _col_local_ids(owned, extras[p], ov, N_o)
         ov_dst[p, :k] = ov_col[p, :k]
@@ -287,19 +294,24 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
 
     slu = None
     if factor == "device":
+        n_loc = hi - lo
         src = _pad_stack([s.data.astype(np.int64) - 1 for s in subs], 0,
                          None, np.int64)
         dst = _pad_stack([p * S * S + s.row.astype(np.int64) * S + s.col
-                          for p, s in enumerate(subs)], n_dev * S * S, None,
+                          for p, s in enumerate(subs)], n_loc * S * S, None,
                          np.int64)
-        flat = dmat.ell_data.reshape(-1)
-        blocks = flat.new_zeros(n_dev * S * S + 1)
+        # a block reads its neighbours' rows: with ranks, every shard's
+        # values (gathered once)
+        flat = (dmat.ell_data.reshape(-1) if axis.group is None
+                else torch.as_tensor(dmat.values_host(),
+                                     dtype=dmat.ell_data.dtype, device=dev))
+        blocks = flat.new_zeros(n_loc * S * S + 1)
         blocks[torch.as_tensor(dst, device=dev)] = flat[
             torch.as_tensor(src, device=dev)]
-        blocks = blocks[:-1].reshape(n_dev, S, S)
+        blocks = blocks[:-1].reshape(n_loc, S, S)
         fill = torch.as_tensor(np.stack(
-            [(np.arange(S) >= len(o)).astype(np.float64) for o in ov_sets]),
-            dtype=blocks.dtype, device=dev)
+            [(np.arange(S) >= len(o)).astype(np.float64)
+             for o in ov_sets[lo:hi]]), dtype=blocks.dtype, device=dev)
         diag = torch.arange(S, device=dev)
         blocks[:, diag, diag] += fill
         # tiny diagonal shift guards exactly-singular saddle blocks
@@ -318,7 +330,7 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
                  for s in subs], S, device=dev)
             inv = None
         else:
-            inv_h = np.zeros((n_dev, S, S))
+            inv_h = np.zeros((len(subs), S, S))
 
             def _factor(p):
                 s = subs[p]
@@ -329,7 +341,7 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
                 inv_h[p] = _robust_inverse(block)
 
             # each block is independent: LAPACK releases the GIL
-            _parallel_map(_factor, range(n_dev))
+            _parallel_map(_factor, range(len(subs)))
             inv = torch.as_tensor(inv_h, device=dev)
             del inv_h
 
@@ -338,7 +350,7 @@ def distributed_schwarz(dmat, overlap: int = 1, combine: str = "Restricted",
         owned = unique_map.partition_indices[p]
         scale[p, : len(owned)] = 1.0 / np.maximum(mult[owned], 1.0)
 
-    ix = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    ix = axis.put  # this rank's rows
     head = [ix(ov_col), ix(ov_dst), ix(keep), ix(own_pos), ix(scale)]
     head = head + list(slu.arrays()) if slu is not None else [inv] + head
     n_head = len(head)

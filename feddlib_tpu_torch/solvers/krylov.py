@@ -8,7 +8,11 @@ rotations, the residual estimate and the convergence test run in the
 vector dtype; CG reads back its residual norm.
 
 Conventions (as in the JAX package):
-- `A`, `M` are callables x→y; preconditioning is on the RIGHT;
+- `A`, `M` are callables x→y; preconditioning is on the RIGHT unless
+  `gmres(left=True)`;
+- `axis` (a parallel/spmd.py DeviceAxis) makes every dot and norm a psum
+  over the ranks of its process group, as the JAX loops' `axis_name`
+  does inside shard_map; without one the dots are this process's;
 - `solve(kind, A_fn, A_ops, b, M_fn=..., M_ops=...)` keeps the
   `(fn, operands)` operator protocol of `solve_jit`: fn(ops, x) → y.
 """
@@ -61,9 +65,26 @@ def _norm(a: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.dot(a, a))
 
 
+def _make_reducers(axis=None):
+    """(dot, norm, allsum): this process's dot and norm, summed over the
+    ranks of `axis`'s process group when it has one (JAX
+    `_make_reducers(axis_name)`); allsum sums a tensor of partial dots."""
+    if axis is None or axis.group is None:
+        return torch.dot, _norm, _identity
+    allsum = axis.allsum
+
+    def dot(a, b):
+        return allsum(torch.dot(a, b))
+
+    def norm(a):
+        return torch.sqrt(dot(a, a))
+
+    return dot, norm, allsum
+
+
 def solve(kind: str, A_fn, A_ops, b, x0=None, M_fn=None, M_ops=(),
           tol: float = 1e-8, maxiter: int = 1000, restart: int = 100,
-          record_history: bool = False) -> KrylovResult:
+          left: bool = False, record_history: bool = False) -> KrylovResult:
     """Run CG or GMRES with operators in (fn, operands) form."""
     def A(x):
         return A_fn(A_ops, x)
@@ -73,7 +94,7 @@ def solve(kind: str, A_fn, A_ops, b, x0=None, M_fn=None, M_ops=(),
         return cg(A, b, x0=x0, M=M, tol=tol, maxiter=maxiter,
                   record_history=record_history)
     return gmres(A, b, x0=x0, M=M, tol=tol, restart=restart,
-                 maxiter=maxiter, record_history=record_history)
+                 maxiter=maxiter, left=left, record_history=record_history)
 
 
 # ---------------------------------------------------------------------------
@@ -92,28 +113,29 @@ def cg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
                         np.asarray(hist) if record_history else None)
 
 
-def cg_loop(A, M, b, x0, tol, maxiter, record=False):
+def cg_loop(A, M, b, x0, tol, maxiter, record=False, axis=None):
+    dot, norm, _ = _make_reducers(axis)
     x = x0
     r = b - A(x0)
     z = M(r)
     p = z
-    bnorm = float(_norm(b))
+    bnorm = float(norm(b))
     bnorm = 1.0 if bnorm == 0 else bnorm
-    rz = torch.dot(r, z)
-    rel = float(_norm(r)) / bnorm
+    rz = dot(r, z)
+    rel = float(norm(r)) / bnorm
     hist = [rel] if record else None
     k = 0
     while rel > tol and k < maxiter:
         Ap = A(p)
-        alpha = rz / torch.dot(p, Ap)
+        alpha = rz / dot(p, Ap)
         x = x + alpha * p
         r = r - alpha * Ap
         z = M(r)
-        rz_new = torch.dot(r, z)
+        rz_new = dot(r, z)
         p = z + (rz_new / rz) * p
         rz = rz_new
         k += 1
-        rel = float(_norm(r)) / bnorm  # the iteration's one host sync
+        rel = float(norm(r)) / bnorm  # the iteration's one host sync
         if record:
             hist.append(rel)
     return x, k, rel, hist
@@ -125,33 +147,41 @@ def cg_loop(A, M, b, x0, tol, maxiter, record=False):
 
 def gmres(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
           M: Optional[Callable] = None, tol: float = 1e-8,
-          restart: int = 100, maxiter: int = 1000,
+          restart: int = 100, maxiter: int = 1000, left: bool = False,
           record_history: bool = False) -> KrylovResult:
-    """Restarted GMRES(m), right-preconditioned.
+    """Restarted GMRES(m), right-preconditioned by default; `left=True`
+    runs it on M A x = M b, its residuals those of the preconditioned
+    system (as in the JAX package).
 
     Orthogonalisation: classical Gram–Schmidt with one DGKS correction pass
     (Belos' default "DGKS")."""
     M = M or _identity
     x0 = torch.zeros_like(b) if x0 is None else x0
     x, total, relres, hist = gmres_loop(A, M, b, x0, tol, restart, maxiter,
-                                        record=record_history)
+                                        record=record_history, left=left)
     return KrylovResult(x, total, relres, relres <= tol,
                         np.asarray(hist) if record_history else None)
 
 
-def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False):
+def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False,
+               left=False, axis=None):
+    _, norm, allsum = _make_reducers(axis)
     n = b.shape[0]
     m = min(restart, maxiter)
     hdt = np.dtype(str(b.dtype).replace("torch.", ""))  # host Givens dtype
 
-    bnorm = float(_norm(b))
+    bnorm = float(norm(M(b) if left else b))
     bnorm = 1.0 if bnorm == 0 else bnorm
 
     hist = [] if record else None
 
-    def arnoldi_cycle(x, total):
+    def residual(x):
         r = b - A(x)
-        beta_d = _norm(r)
+        return M(r) if left else r
+
+    def arnoldi_cycle(x, total):
+        r = residual(x)
+        beta_d = norm(r)
         beta = hdt.type(float(beta_d))
         V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
         V[0] = r / torch.where(beta_d == 0, torch.ones_like(beta_d), beta_d)
@@ -162,13 +192,13 @@ def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False):
         g[0] = beta
         j, res = 0, beta
         while j < m and res / bnorm > tol:
-            w = A(M(V[j]))
+            w = M(A(V[j])) if left else A(M(V[j]))
             Vj = V[: j + 1]
-            h1 = Vj @ w
+            h1 = allsum(Vj @ w)
             w = w - Vj.T @ h1
-            h2 = Vj @ w
+            h2 = allsum(Vj @ w)
             w = w - Vj.T @ h2
-            wnorm = _norm(w)
+            wnorm = norm(w)
             V[j + 1] = w / torch.where(wnorm == 0, torch.ones_like(wnorm),
                                        wnorm)
             # the iteration's one host sync: the new Hessenberg column
@@ -198,12 +228,12 @@ def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False):
         for i in range(j - 1, -1, -1):
             num = g[i] - H[i] @ y
             y[i] = num / (H[i, i] if H[i, i] != 0 else 1.0)
-        dx = M(V[:j].T @ torch.as_tensor(y[:j], device=b.device))
-        return x + dx, j, float(res)
+        dx = V[:j].T @ torch.as_tensor(y[:j], device=b.device)
+        return x + (dx if left else M(dx)), j, float(res)
 
     x = x0
     total = 0
-    res = float(_norm(b - A(x0)))
+    res = float(norm(residual(x0)))
     if record:
         hist.append(res / bnorm)
     while res / bnorm > tol and total < maxiter:

@@ -490,25 +490,27 @@ class LinearSolver:
         """Solve the merged system over a shard axis: owned-row shards of
         A stacked on the problem's device, halo imports, the distributed
         Schwarz (one level, or two with the GDSW coarse level) and the
-        Krylov loop with its dots over every shard.
+        Krylov loop with its dots over every shard.  The axis comes from
+        `multihost.global_device_axis`: inside a program of several ranks
+        (parallel/multihost.py) each rank holds its range of the shards on
+        its own device, and every rank must make the same call.
 
-        'Devices' is the shard count; it defaults to the device count of
-        the problem's device type (the JAX package's len(jax.devices()),
-        8 virtual devices in its test harness), so tests and the card's
-        smoke run pass it.  The shards, plans and preconditioner are cached
-        on the problem (`_dist_cache`) while A's pattern is unchanged and
+        'Devices' is the shard count; it defaults to
+        `multihost.default_shards`: one shard a rank with several ranks,
+        else the device count of the problem's device type (the JAX
+        package's len(jax.devices()), 8 virtual devices in its test
+        harness), so tests and the card's smoke run pass it.  The shards,
+        plans and preconditioner are cached on the problem (`_dist_cache`) while A's pattern is unchanged and
         the preconditioner is not stale.  With 'Use Device Pipeline' and a
         problem that has `pipeline_blocks`, `_solve_pipeline` assembles
         the shards on the device instead."""
+        from feddlib_tpu_torch.parallel import multihost
         from feddlib_tpu_torch.parallel.solve import DistributedSolver
-        from feddlib_tpu_torch.parallel.spmd import (DeviceAxis,
-                                                     DistributedCsr,
-                                                     lane_index)
+        from feddlib_tpu_torch.parallel.spmd import (DistributedCsr,
+                                                     lane_index, local_lanes)
 
         dev = problem.device
-        n_default = (torch.cuda.device_count() if dev.type == "cuda"
-                     else torch.cpu.device_count())
-        n_dev = int(params.get("Devices", n_default))
+        n_dev = int(params.get("Devices", multihost.default_shards(dev)))
         hook = getattr(problem, "pipeline_blocks", None)
         if hook is not None and bool(params.get("Use Device Pipeline",
                                                 False)):
@@ -524,9 +526,10 @@ class LinearSolver:
             part = MeshPartition(base_mesh, n_dev)
             dof_map = problem.preconditioner._merged_dof_map(part)
             t_p = time.perf_counter()
-            dmat = DistributedCsr(A, dof_map)
+            axis = multihost.global_device_axis(n_dev, dev)
+            dmat = DistributedCsr(A, dof_map, axis=axis)
             t1 = time.perf_counter()
-            solver = DistributedSolver(dmat, DeviceAxis(n_dev, dev))
+            solver = DistributedSolver(dmat, axis)
             nsp, _, _ = _coarse_space(params)
             # the coarse-space feed: one field's partition, points and dofs
             # per node, or the monolithic block GDSW of the serial path
@@ -538,12 +541,16 @@ class LinearSolver:
                    else dict(blocks=problem.preconditioner._block_specs(
                        part, nsp))))
             # the stacked lane of each global dof, for the vector scatter /
-            # gather on the device
-            gids, lanes = lane_index(dof_map, dmat.plan.N_o)
+            # gather on the device (the rank's own, and all of them)
+            gids, lanes = local_lanes(dof_map, dmat.plan.N_o, axis)
+            g_all, l_all = lane_index(dof_map, dmat.plan.N_o)
+            xdev = axis.device
             cache = {"pattern": A.pattern, "dmat": dmat, "solver": solver,
                      "precond": precond, "dof_map": dof_map,
-                     "gids": torch.as_tensor(gids, device=dev),
-                     "lanes": torch.as_tensor(lanes, device=dev),
+                     "gids": torch.as_tensor(gids, device=xdev),
+                     "lanes": torch.as_tensor(lanes, device=xdev),
+                     "gids_all": torch.as_tensor(g_all, device=xdev),
+                     "lanes_all": torch.as_tensor(l_all, device=xdev),
                      "timings": {"partition_s": t_p - t0,
                                  "dmat_s": t1 - t_p,
                                  "precond_s": time.perf_counter() - t1}}
@@ -551,19 +558,24 @@ class LinearSolver:
             problem._prec_stale = False
         dmat, solver = cache["dmat"], cache["solver"]
         gids, lanes = cache["gids"], cache["lanes"]
-        bf = b.concat()
-        b_dist = bf.new_zeros(dmat.n_dev * dmat.plan.N_o)
+        axis = solver.axis
+        bf = b.concat().to(axis.device)
+        b_dist = bf.new_zeros(axis.n_local * dmat.plan.N_o)
         b_dist[lanes] = bf[gids]
         x, iters, rel = solver.solve(
-            b_dist.view(dmat.n_dev, -1),
+            b_dist.view(axis.n_local, -1),
             method="cg" if method == "cg" else "gmres", tol=tol,
             maxiter=maxiter, restart=restart, precond=cache["precond"])
         problem.last_relres = rel
         if rel > tol:
             warnings.warn(f"distributed solve not converged: relres={rel}")
+        if axis.group is not None:  # every rank gets the whole solution
+            x = axis.all_gather(x)
+            gids, lanes = cache["gids_all"], cache["lanes_all"]
         xg = bf.new_zeros(bf.shape[0])
         xg[gids] = x.reshape(-1)[lanes]
-        return BlockVector.split(xg, problem.block_sizes()), iters
+        return (BlockVector.split(xg.to(dev), problem.block_sizes()),
+                iters)
 
     def _solve_pipeline(self, problem, pblocks, b: BlockVector, params,
                         tol, maxiter, restart, method, n_dev):
@@ -577,8 +589,8 @@ class LinearSolver:
         and the shard count; the solution and the RHS ride their shard
         mirrors (`BlockVector._dist_mirror`), so a Newton loop uploads the
         solution once."""
+        from feddlib_tpu_torch.parallel import multihost
         from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
-        from feddlib_tpu_torch.parallel.spmd import DeviceAxis
 
         pkey = (tuple((i, j, kind, tuple(sorted((k, _hashable(v))
                                                 for k, v in prm.items())))
@@ -595,7 +607,8 @@ class LinearSolver:
                 part, [(dom, dofs) for dom, dofs, _ in problem.variables])
             for i, j, kind, prm in pblocks:
                 pipe.add_block(i, j, kind, **prm)
-            pipe.finalize(DeviceAxis(n_dev, problem.device))
+            pipe.finalize(multihost.global_device_axis(n_dev,
+                                                       problem.device))
             pc = {"key": pkey, "pipe": pipe, "part": part,
                   "timings": {"partition_s": t1 - t0,
                               "finalize_s": time.perf_counter() - t1}}

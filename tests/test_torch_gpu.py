@@ -1071,3 +1071,128 @@ def test_fsi_distributed_facsi_on_card_matches_cpu(hopper):
     assert prob._pipe_ge["pipe"].ell_src.device.type == "cuda"
     assert runs[0][0] == runs[1][0]
     assert _rel(runs[1][1], runs[0][1]) < 1e-8
+
+
+# -- shards on several processes and AMR (parallel/multihost.py,
+# mesh/refine.py); the scenarios are tests/test_torch_multihost.py's ----------
+
+
+def _card_ranks_main():
+    """A rank on the card: the collectives, the distributed CG and the
+    pipeline + two-level GDSW GMRES on this rank's shards."""
+    from test_torch_multihost import N_SHARDS, _cg, _collectives, _pipeline
+
+    from feddlib_tpu_torch.parallel import multihost
+
+    dev = multihost.local_device("cuda")
+    torch.cuda.set_device(dev)
+    axis = multihost.global_device_axis(N_SHARDS, dev)
+    return {"backend": axis.backend, "slice": (axis.lo, axis.hi),
+            "collectives": _collectives(axis), "cg": _cg(axis),
+            "pipeline": _pipeline(axis)}
+
+
+def _card_stacked(dev):
+    from test_torch_multihost import N_SHARDS, _cg, _collectives, _pipeline
+
+    from feddlib_tpu_torch.parallel.spmd import DeviceAxis
+
+    axis = DeviceAxis.make(N_SHARDS, dev)
+    return {"collectives": _collectives(axis), "cg": _cg(axis),
+            "pipeline": _pipeline(axis)}
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_card_match_stacked(hopper):
+    """Two gloo ranks on the one card (device tensors staged through pinned
+    host buffers) against the same shards stacked on the card: ppermute,
+    all_gather and the gathered matrix bitwise, counts equal, x within
+    1e-12."""
+    from feddlib_tpu_torch.parallel import multihost
+
+    two = multihost.launch(_card_ranks_main, 2, backend="gloo",
+                           timeout=240)
+    ref = _card_stacked(hopper)
+    assert [r["slice"] for r in two] == [(0, 2), (2, 4)]
+    for k in range(len(ref["collectives"]["ppermute"])):
+        got = np.concatenate([r["collectives"]["ppermute"][k] for r in two])
+        assert np.array_equal(got, ref["collectives"]["ppermute"][k])
+    for r in two:
+        assert r["backend"] == "gloo"
+        assert np.array_equal(r["collectives"]["all_gather"],
+                              ref["collectives"]["all_gather"])
+        for stage in ("cg", "pipeline"):
+            got, want = r[stage], ref[stage]
+            assert got["iters"] == want["iters"]
+            assert np.array_equal(got["ell"], want["ell"])
+            rel = np.abs(got["x"] - want["x"]).max() / np.abs(
+                want["x"]).max()
+            assert rel <= 1e-12
+
+
+@pytest.mark.gpu
+def test_one_nccl_rank_on_card_bitwise_stacked(hopper):
+    """World size 1 over NCCL: the collectives run through the process
+    group and every result is bitwise the stacked run's."""
+    from feddlib_tpu_torch.parallel import multihost
+
+    (one,) = multihost.launch(_card_ranks_main, 1, backend="nccl",
+                              timeout=240)
+    ref = _card_stacked(hopper)
+    assert one["backend"] == "nccl" and one["slice"] == (0, 4)
+    for k, want in enumerate(ref["collectives"]["ppermute"]):
+        assert np.array_equal(one["collectives"]["ppermute"][k], want)
+    assert np.array_equal(one["collectives"]["psum"],
+                          ref["collectives"]["psum"])
+    for stage in ("cg", "pipeline"):
+        assert one[stage]["iters"] == ref[stage]["iters"]
+        assert np.array_equal(one[stage]["x"], ref[stage]["x"])
+        assert np.array_equal(one[stage]["ell"], ref[stage]["ell"])
+
+
+def _mesh_key(mesh):
+    """The mesh's geometry, blind to point and element numbering."""
+    pts = np.round(mesh.points, 12)
+    uniq, rank = np.unique(pts, axis=0, return_inverse=True)
+    el = np.sort(rank.reshape(-1)[mesh.elements[:, : mesh.dim + 1]], axis=1)
+    return uniq.tobytes() + el[np.lexsort(el.T[::-1])].tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mixed", [False, True])
+def test_amr_cycles_on_card_match_cpu(hopper, mixed):
+    """Two cycles of adaptive_solve_cycles (the distributed pipeline, or
+    the mixed-precision solve; solves to 1e-12) on the card against the
+    CPU: the same first mesh, and eta within rtol 1e-8 on every mesh the
+    two runs share (the Dörfler cut may fall inside a group of exactly
+    tied indicators on this symmetric mesh, which the last bits of u
+    split)."""
+    from feddlib_tpu_torch.mesh.structured import build_structured_mesh
+    from feddlib_tpu_torch.solvers.refinement import adaptive_solve_cycles
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    opts = ({"Use Mixed Precision": True, "TwoLevel": True, "Clusters": 8}
+            if mixed else {"Use Distributed Solve": True, "Devices": 4,
+                           "Use Device Pipeline": True})
+    opts["Convergence Tolerance"] = 1e-12
+
+    def f_t(x):
+        return torch.exp(-100 * ((x[0] - 0.5) ** 2 + (x[1] - 0.5) ** 2))
+
+    def f_np(x):
+        return float(np.exp(-100 * ((x[0] - .5) ** 2 + (x[1] - .5) ** 2)))
+
+    out, keys = {}, {}
+    for d in (hopper, torch.device("cpu")):
+        keys[d.type] = []
+        out[d.type] = adaptive_solve_cycles(
+            build_structured_mesh(2, 16), f_t, cycles=2, theta=0.6,
+            params=ParameterList("P", dict(opts)), source_np=f_np, device=d,
+            callback=lambda c, prob, rec, k=keys[d.type]: k.append(
+                _mesh_key(prob.domains[0].mesh)))
+    assert keys["cuda"][0] == keys["cpu"][0]
+    for a, b, ka, kb in zip(out["cuda"], out["cpu"], keys["cuda"],
+                            keys["cpu"]):
+        if ka != kb:
+            break
+        assert abs(a["eta"] - b["eta"]) <= 1e-8 * b["eta"]
