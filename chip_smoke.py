@@ -4,7 +4,8 @@ Hopper card.  Run from the repository root:  python3 chip_smoke.py
 
 Phases (each prints its seconds; any failed check raises and the script
 exits non-zero):
-  1. build the CUDA kernels of csrc/ with nvcc for sm_90a;
+  1. build the CUDA kernels of csrc/ with nvcc for sm_90a, and beside them
+     the native host library (feddlib_tpu_torch/native, g++);
   2. main path: Laplace on Domain.structured(3, 64) (P1, 274,625 dofs),
      'Use Mixed Precision' + 'TwoLevel' with 512 clusters, solved to 1e-8
      through Problem.solve; the f64 residual is recomputed on the host with
@@ -24,6 +25,7 @@ exits non-zero):
      the M(A(x)) apply time, and the refinement to 1e-8 (B4 must launch);
   5. elasticity operator: LinElas on Domain.structured(3, 32).p2_domain()
      (P2, 823,875 dofs, 69 M nonzeros, one face clamped), assembled through fe/ops.py and
+     the seconds of its symbolic phase (the native from_coo) printed,
      laid out by auto_spmv(K, float32, dofs_per_node=3) as the RCM split
      with a block-SELL residue; one apply against the host f64 product,
      with_data, a fixed number of Jacobi-preconditioned GMRES iterations
@@ -38,8 +40,9 @@ exits non-zero):
      its plain version at this solve's shapes); the same operator through
      auto_spmv must come out as block-DIA; a small Jacobi solve takes the
      f64 Krylov path with the block-DIA apply;
-  7. the f64 default path: Laplace on Domain.structured(3, 64) through
-     Problem.solve with the default 'Preconditioner Type' ('SchwarzTwoLevel':
+  7. the f64 default path: Laplace on Domain.structured(3, 48) (cut from
+     64 for the time limit; --n-schwarz) through Problem.solve with the
+     default 'Preconditioner Type' ('SchwarzTwoLevel':
      f64 overlapping Schwarz with dense [P, S, S] subdomain inverses plus
      the GDSW coarse level) on 512 subdomains, to 1e-8; the f64 residual on
      the host, the setup seconds, one M(A(x)) apply (device and wall), the
@@ -96,7 +99,7 @@ exits non-zero):
      derivatives of fe/shape_derivatives.py) with the f64 one-level
      Schwarz on 16 subdomains, the card's D_ug, D_pg against the CPU's;
  12. the distributed solve, its shards stacked on the card: 12a phase 7's
-     system (Domain.structured(3, 64)) through Problem.solve with 'Use
+     system (Domain.structured(3, 48)) through Problem.solve with 'Use
      Distributed Solve' over 512 shards ('Devices'; --n-dist,
      --dist-devices) and 'SchwarzTwoLevel' (distributed GDSW, overlap 1,
      Restricted, dense coarse), f64 GMRES to 1e-8: the host estimate of
@@ -164,7 +167,14 @@ exits non-zero):
      against the CPU (1e-12) and dryrun_multichip(4) on stacked shards on
      the card and on the CPU: counts equal, the FSI tip within 1e-10.
      Phase 2 also prints the card's busy share of its repeated solve,
-     read from a timers.profile_trace trace.
+     read from a timers.profile_trace trace;
+ 16. the native host library on the card machine's host, each function
+     against its numpy version, bitwise, both timed: (a)
+     SparsityPattern.from_coo on phase 2's COO (Domain.structured(3, 64),
+     P1, 25.2 M entries), (b) read_mesh of MEDIT files written at run time
+     (a cube of --n-medit cells with boundary triangles, and
+     scenarios.write_channel_mesh), P1 and P2, (c) rcb of phase 2's
+     274,625 points into its 512 clusters; one {"host_native": ...} line.
 
 Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
@@ -2991,6 +3001,180 @@ def _phase15(torch, np, args, dev, ref13):
     _phase("15 fsi on ranks, drivers, entry points", t0)
 
 
+class _TimedFromCoo:
+    """Within the block, SparsityPattern.from_coo adds its calls, seconds
+    and entries to `stats` (the symbolic phase of an assembly)."""
+
+    def __init__(self):
+        from feddlib_tpu_torch.la.csr import SparsityPattern
+
+        self.cls = SparsityPattern
+        self.orig = SparsityPattern.__dict__["from_coo"]
+        self.stats = {"calls": 0, "seconds": 0.0, "entries": 0,
+                      "largest_entries": 0, "largest_seconds": 0.0}
+
+    def __enter__(self):
+        orig, stats = self.orig, self.stats
+
+        def timed(cls, rows, cols, n_rows, n_cols):
+            t = time.perf_counter()
+            out = orig.__func__(cls, rows, cols, n_rows, n_cols)
+            dt = time.perf_counter() - t
+            n = len(out.coo_slots)
+            stats["calls"] += 1
+            stats["seconds"] += dt
+            stats["entries"] += n
+            if n > stats["largest_entries"]:
+                stats["largest_entries"], stats["largest_seconds"] = n, dt
+            return out
+
+        self.cls.from_coo = classmethod(timed)
+        return self.stats
+
+    def __exit__(self, *exc):
+        self.cls.from_coo = self.orig
+        return False
+
+
+def _phase2_coo(np, mesh, fast):
+    """The COO of phase 2's P1 Laplace scatter: ordered (a, b, E) as
+    fast_assembly.pattern_abe builds it where the fast path runs (a CUDA
+    domain), else (E, a, b) as assembly.scatter_pattern does."""
+    el = np.asarray(mesh.elements, dtype=np.int64)
+    E, nb = el.shape
+    if fast:
+        dT = el.T
+        rows = np.broadcast_to(dT[:, None, :], (nb, nb, E))
+        cols = np.broadcast_to(dT[None, :, :], (nb, nb, E))
+    else:
+        rows = np.broadcast_to(el[:, :, None], (E, nb, nb))
+        cols = np.broadcast_to(el[:, None, :], (E, nb, nb))
+    return (np.ascontiguousarray(rows).reshape(-1),
+            np.ascontiguousarray(cols).reshape(-1))
+
+
+def _timed(fn, *a):
+    t = time.perf_counter()
+    out = fn(*a)
+    return out, time.perf_counter() - t
+
+
+def _phase16(torch, np, args, dev, host_build, mesh=None):
+    """The native host library against its numpy versions on the card
+    machine's host: (a) from_coo on phase 2's COO, (b) read_mesh of MEDIT
+    files written here, P1 and P2, (c) rcb of phase 2's points.  Each pair
+    must agree bitwise; prints one {"host_native": ...} line.  `mesh` is
+    phase 2's (built here when None: 11 s of boundary facets at 64
+    cells)."""
+    import tempfile
+
+    from feddlib_tpu_torch import native, scenarios
+    from feddlib_tpu_torch.fe import fast_assembly
+    from feddlib_tpu_torch.la.csr import SparsityPattern
+    from feddlib_tpu_torch.mesh.io import read_mesh, read_mesh_plain, write_mesh
+    from feddlib_tpu_torch.mesh.structured import build_structured_mesh
+
+    t0 = time.perf_counter()
+    out = {"compiler": host_build["compiler"],
+           "build_s": host_build["build_s"]}
+    # (a) the symbolic phase of phase 2's operator
+    if mesh is None:
+        mesh, t_mesh = _timed(build_structured_mesh, 3, args.n)
+        out["mesh_s"] = t_mesh
+    rows, cols = _phase2_coo(np, mesh, fast_assembly.use_fast(dev))
+    n = mesh.n_points
+    pn, t_nat = _timed(SparsityPattern.from_coo, rows, cols, n, n)
+    pp, t_plain = _timed(SparsityPattern.from_coo_plain, rows, cols, n, n)
+    for f in ("indptr", "indices", "coo_slots"):
+        a, b = getattr(pn, f), getattr(pp, f)
+        _check(a.dtype == b.dtype and np.array_equal(a, b),
+               f"phase 16a: native from_coo {f} differs from plain")
+    out["from_coo"] = {"cells": args.n, "elements": mesh.n_elements,
+                       "entries": len(rows), "n_rows": n, "nnz": pn.nnz,
+                       "native_s": t_nat, "plain_s": t_plain,
+                       "plain_over_native": t_plain / t_nat}
+    print(f"16a from_coo: {len(rows)} COO entries over {mesh.n_elements} "
+          f"tets, nnz={pn.nnz}: native {t_nat:.4f} s, plain {t_plain:.4f} "
+          f"s ({t_plain / t_nat:.3f}x), bitwise equal", flush=True)
+    del rows, cols, pn, pp
+    # (c) rcb of phase 2's points into its clusters' count
+    pts = mesh.points
+    rn, t_rn = _timed(native.rcb, pts, args.clusters)
+    rp, t_rp = _timed(native.rcb_plain, pts, args.clusters)
+    _check(np.array_equal(rn, rp), "phase 16c: native rcb differs from plain")
+    _check(np.array_equal(np.unique(rn), np.arange(args.clusters)),
+           "phase 16c: rcb leaves a part empty")
+    out["rcb"] = {"points": len(pts), "parts": args.clusters,
+                  "native_s": t_rn, "plain_s": t_rp}
+    print(f"16c rcb: {len(pts)} points into {args.clusters} parts: native "
+          f"{t_rn:.4f} s, plain {t_rp:.4f} s, bitwise equal", flush=True)
+    # (b) MEDIT files written here, read by both parsers
+    fields = ("points", "point_flags", "elements", "element_flags",
+              "surfaces", "surface_flags", "lines", "line_flags", "p2_edges")
+    out["read_mesh"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cube = os.path.join(tmp, "cube.mesh")
+        m3 = build_structured_mesh(3, args.n_medit)
+        _check(m3.surfaces is not None and len(m3.surfaces) > 0,
+               "phase 16b: the cube has no boundary triangles")
+        _, t_w = _timed(write_mesh, m3, cube)
+        files = {f"cube{args.n_medit}": cube,
+                 "channel": scenarios.write_channel_mesh(
+                     os.path.join(tmp, "channel.mesh"))}
+        for name, path in files.items():
+            for fe in ("P1", "P2"):
+                mn, t_mn = _timed(read_mesh, path, fe)
+                mp, t_mp = _timed(read_mesh_plain, path, fe)
+                for f in fields:
+                    a, b = getattr(mn, f), getattr(mp, f)
+                    _check((a is None and b is None) or (
+                        a is not None and b is not None
+                        and a.dtype == b.dtype and np.array_equal(a, b)),
+                        f"phase 16b: read_mesh {name} {fe} {f} differs")
+                out["read_mesh"][f"{name}_{fe}"] = {
+                    "bytes": os.path.getsize(path), "points": mn.n_points,
+                    "elements": mn.n_elements, "native_s": t_mn,
+                    "plain_s": t_mp}
+                print(f"16b read_mesh {name} {fe}: {os.path.getsize(path)} "
+                      f"bytes, {mn.n_points} points, {mn.n_elements} "
+                      f"elements: native {t_mn:.4f} s, plain {t_mp:.4f} s, "
+                      f"bitwise equal", flush=True)
+        out["read_mesh"]["write_s"] = t_w
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"host_native": out}), flush=True)
+    _phase("16 host native library", t0)
+
+
+def _start_host_build():
+    """Build the native host library in a thread (beside nvcc); returns a
+    function that waits for it and returns {"compiler", "build_s"}."""
+    import threading
+
+    from feddlib_tpu_torch import native
+
+    res = {}
+
+    def run():
+        t = time.perf_counter()
+        try:
+            native.get_lib()
+        except RuntimeError as e:
+            res["error"] = e
+        res["build_s"] = time.perf_counter() - t
+
+    th = threading.Thread(target=run)
+    th.start()
+
+    def wait():
+        th.join()
+        if "error" in res:
+            raise res["error"]
+        return {"compiler": native.compiler_version(),
+                "build_s": res["build_s"]}
+
+    return wait
+
+
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=64,
@@ -3004,8 +3188,12 @@ def _parser():
     ap.add_argument("--n-solve", type=int, default=40,
                     help="cells per side of the P1 elasticity solve cube")
     ap.add_argument("--solve-clusters", type=int, default=128)
-    ap.add_argument("--n-schwarz", type=int, default=64,
-                    help="cells per side of the f64 default-path cube")
+    # phases 7, 12a, 13a and 14a solve this one system (12a-14a against
+    # phase 7's); at 64 cells they took 290-334 s of the script (runs 12d,
+    # 13c), which went over its time limit on a slow host
+    ap.add_argument("--n-schwarz", type=int, default=48,
+                    help="cells per side of the f64 default-path cube "
+                         "(cut from 64)")
     ap.add_argument("--schwarz-parts", type=int, default=512)
     # the cavity's dof-map clusters are rebalanced (rebalance_row_clusters),
     # which widens the widest cluster's ghost set 5-6x: at 20 cells and 128
@@ -3033,8 +3221,9 @@ def _parser():
     ap.add_argument("--fsi-clusters", type=int, default=64)
     ap.add_argument("--n-fsi2d", type=int, default=64,
                     help="cells per side of each 2D FSI box (FaCSI)")
-    ap.add_argument("--n-dist", type=int, default=64,
-                    help="cells per side of the distributed solve's cube")
+    ap.add_argument("--n-dist", type=int, default=48,
+                    help="cells per side of the distributed solve's cube "
+                         "(cut from 64 with --n-schwarz)")
     ap.add_argument("--dist-devices", type=int, default=512,
                     help="shards of the distributed solve")
     ap.add_argument("--n-fsi-gi", type=int, default=32,
@@ -3078,11 +3267,14 @@ def _parser():
     ap.add_argument("--n-driver-elas", type=int, default=16,
                     help="cells a side of phase 15b's 3D elasticity driver "
                          "run")
-    ap.add_argument("--only", choices=["12,13", "14", "15"], default=None,
+    ap.add_argument("--n-medit", type=int, default=32,
+                    help="cells a side of phase 16b's MEDIT cube")
+    ap.add_argument("--only", choices=["12,13", "14", "15", "16"],
+                    default=None,
                     help="after the build run phases 12 and 13 alone "
                          "(phase 12 without its phase 7 comparison), "
-                         "phase 13a and phase 14, or phases 13c/13d and "
-                         "phase 15; no kernel entries")
+                         "phase 13a and phase 14, phases 13c/13d and "
+                         "phase 15, or phase 16; no kernel entries")
     return ap
 
 
@@ -3116,15 +3308,21 @@ def main(argv=None):
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
+    host_wait = _start_host_build()
     lib_path = _cuda.build()
     _cuda.lib()
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  " + line.strip())
     print(f"kernels built: {lib_path}")
+    host_build = host_wait()
+    print(f"host library built with {host_build['compiler']} in "
+          f"{host_build['build_s']:.3f} s (beside nvcc)")
     _phase("1 build", t0)
     if args.only is not None:
-        if args.only == "12,13":
+        if args.only == "16":
+            _phase16(torch, np, args, dev, host_build)
+        elif args.only == "12,13":
             ref12 = _phase12(torch, np, args, dev, None)
             gc.collect()
             torch.cuda.empty_cache()
@@ -3161,6 +3359,7 @@ def main(argv=None):
                      / np.linalg.norm(b_np))
     cache = prob._mixed_cache
     db, split, prec = cache["db32"], cache["sell"], cache["prec"]
+    mesh2 = prob.variables[0][0].mesh  # host arrays, for phase 16
     # the same solve again with the built preconditioner: the refinement
     # and inner GMRES time alone, under timers.profile_trace (the trace is
     # kept in chiprun_out/phase2_trace) for the card's busy share
@@ -3465,10 +3664,15 @@ def main(argv=None):
 
     dom = Domain.structured(3, args.n_elas, device=dev).p2_domain()
     t_mesh = time.perf_counter() - t0
-    prob = _linelas(torch, dom, {}, dev)
-    A = prob.bc_system().get_block(0, 0)
+    with _TimedFromCoo() as sym5:
+        prob = _linelas(torch, dom, {}, dev)
+        A = prob.bc_system().get_block(0, 0)
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0 - t_mesh
+    print(f"elasticity operator symbolic phase (native from_coo): "
+          f"{sym5['calls']} calls, {sym5['seconds']:.3f} s over "
+          f"{sym5['entries']} COO entries; the largest, {sym5['largest_entries']} "
+          f"entries, {sym5['largest_seconds']:.3f} s", flush=True)
     t_fmt = time.perf_counter()
     F = auto_spmv(A, dtype=torch.float32, dofs_per_node=3)
     torch.cuda.synchronize()
@@ -3720,6 +3924,7 @@ def main(argv=None):
     gc.collect()
     torch.cuda.empty_cache()
     _phase15(torch, np, args, dev, ref13)
+    _phase16(torch, np, args, dev, host_build, mesh2)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -143,6 +143,8 @@ def elem_mass_flat_T(vc, dim, fe_type):
 
 
 _KERNELS = {"laplace": elem_laplace_flat_T, "mass": elem_mass_flat_T}
+#: the operators of the fast path (the keys of _KERNELS)
+SUPPORTED_OPS = tuple(_KERNELS)
 
 
 def elem_advection_flat_T(vc, ue, dim, fe_type):

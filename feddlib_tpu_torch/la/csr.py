@@ -4,7 +4,7 @@ Counterpart of feddlib_tpu/la/csr.py.  The insert → fillComplete flow is:
 
 1. *Symbolic phase* (host, once): dedupe COO (row, col) pairs → CSR pattern
    + an assembly plan mapping every raw COO contribution to its slot
-   (`SparsityPattern.from_coo`, numpy).
+   (`SparsityPattern.from_coo`, through the native host library).
 2. *Numeric phase* (device, per assembly): a segment sum of the raw values
    into their slots.  On the CPU that is `index_add_`; on the card, where
    `index_add_` sums with atomics in a run-dependent order, each value is
@@ -25,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from feddlib_tpu_torch import native
 from feddlib_tpu_torch.utils.device import resolve_device
 
 # symbolic-union cache of CsrMatrix.add across reassemblies:
@@ -49,6 +50,17 @@ class SparsityPattern:
     @classmethod
     def from_coo(cls, rows: np.ndarray, cols: np.ndarray,
                  n_rows: int, n_cols: int) -> "SparsityPattern":
+        """The symbolic phase through the native library (row-bucketed,
+        equal to from_coo_plain array for array); RuntimeError if the
+        library cannot be built."""
+        indptr, indices, slots = native.coo_to_csr(rows, cols, n_rows, n_cols)
+        return cls(n_rows, n_cols, indptr, indices, coo_slots=slots)
+
+    @classmethod
+    def from_coo_plain(cls, rows: np.ndarray, cols: np.ndarray,
+                       n_rows: int, n_cols: int) -> "SparsityPattern":
+        """The numpy version of from_coo (np.unique over row * n_cols + col
+        keys), the reference the native library is held against."""
         rows = np.asarray(rows, dtype=np.int64).ravel()
         cols = np.asarray(cols, dtype=np.int64).ravel()
         key = rows * n_cols + cols

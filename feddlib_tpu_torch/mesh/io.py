@@ -16,13 +16,17 @@ In 2D: Triangles are volume elements, Edges are boundary surfaces.
 In 3D: Tetrahedra are volume elements, Triangles are boundary surfaces,
 Edges are flagged line entities.
 
-This copy keeps only the numpy parser (no native C++ library).
+`read_mesh` parses with the native host library (feddlib_tpu_torch/native)
+and, as the JAX package does, hands a file whose native parse has no
+dimension 2 or 3 (not MEDIT, unreadable, malformed) to the numpy parser,
+`read_mesh_plain`, whose error is the caller's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from feddlib_tpu_torch import native
 from feddlib_tpu_torch.mesh.mesh import Mesh
 
 _BLOCKS = ("Vertices", "Edges", "Triangles", "Quadrilaterals", "Tetrahedra", "Hexahedra")
@@ -37,6 +41,17 @@ def _tokenize(path: str):
 
 
 def read_mesh(path: str, fe_type: str = "P1") -> Mesh:
+    """Read a MEDIT file through the native parser; RuntimeError if the
+    native library cannot be built."""
+    r = native.read_medit(path)
+    if r is not None and r["dim"] in (2, 3):
+        return _mesh_from_native(r, fe_type)
+    return read_mesh_plain(path, fe_type)
+
+
+def read_mesh_plain(path: str, fe_type: str = "P1") -> Mesh:
+    """The numpy parser ('#' starts a comment; Quadrilaterals and
+    Hexahedra blocks are read and skipped)."""
     toks = _tokenize(path)
     dim = None
     blocks: dict[str, np.ndarray] = {}
@@ -113,6 +128,35 @@ def read_mesh(path: str, fe_type: str = "P1") -> Mesh:
     else:
         raise ValueError(f"{path}: unsupported dimension {dim}")
 
+    return _with_fe_type(mesh, fe_type)
+
+
+def _mesh_from_native(r: dict, fe_type: str) -> Mesh:
+    dim = r["dim"]
+    points = r["vertices"][:, :dim].copy()
+    pflags = r["vertex_flags"].copy()
+    if dim == 2:
+        if not len(r["triangles"]):
+            raise ValueError("2D mesh without Triangles")
+        mesh = Mesh(2, "P1", points, pflags, r["triangles"],
+                    r["triangle_flags"],
+                    surfaces=r["edges"] if len(r["edges"]) else None,
+                    surface_flags=(r["edge_flags"] if len(r["edges"])
+                                   else None))
+    else:
+        if not len(r["tetrahedra"]):
+            raise ValueError("3D mesh without Tetrahedra")
+        mesh = Mesh(3, "P1", points, pflags, r["tetrahedra"],
+                    r["tetrahedra_flags"],
+                    surfaces=r["triangles"] if len(r["triangles"]) else None,
+                    surface_flags=(r["triangle_flags"]
+                                   if len(r["triangles"]) else None),
+                    lines=r["edges"] if len(r["edges"]) else None,
+                    line_flags=r["edge_flags"] if len(r["edges"]) else None)
+    return _with_fe_type(mesh, fe_type)
+
+
+def _with_fe_type(mesh: Mesh, fe_type: str) -> Mesh:
     if fe_type == "P2":
         from feddlib_tpu_torch.mesh.p2 import build_p2_mesh
 

@@ -135,6 +135,14 @@ class _BlockDef:
     mesh: int = 0         # element-mesh index (0 = main partition)
     geom: str = "current"  # "current" | "ref" (reference-configuration vc)
 
+    @property
+    def needs_field(self):  # back-compat single-field view
+        return self.fields[0][0] if self.fields else None
+
+    @property
+    def field_src(self):
+        return self.fields[0][1] if self.fields else "x"
+
 
 @dataclass
 class _CooBlockDef:

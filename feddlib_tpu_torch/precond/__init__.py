@@ -1,0 +1,3 @@
+from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner, grow_overlap
+
+__all__ = ["SchwarzPreconditioner", "grow_overlap"]

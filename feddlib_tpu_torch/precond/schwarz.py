@@ -29,7 +29,8 @@ import scipy.sparse as sps
 import torch
 
 from feddlib_tpu_torch.la.csr import CsrMatrix
-from feddlib_tpu_torch.la.dense_blocks import _parallel_map, _robust_inverse
+from feddlib_tpu_torch.la.dense_blocks import (  # noqa: F401 (re-export)
+    ROBUST_INVERSE_STATS, _parallel_map, _robust_inverse)
 from feddlib_tpu_torch.la.map import IndexMap
 
 

@@ -149,6 +149,30 @@ def test_port_imports_no_jax():
     assert out.stdout.startswith("OK")
 
 
+def test_native_runs_where_jax_cannot_import():
+    """The native host library builds, loads and runs from_coo in a process
+    where importing jax or the JAX package fails."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'feddlib_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from feddlib_tpu_torch import native\n"
+        "from feddlib_tpu_torch.la.csr import SparsityPattern\n"
+        "p = SparsityPattern.from_coo(np.array([1, 0, 1]), "
+        "np.array([2, 0, 2]), 2, 3)\n"
+        "assert p.indptr.tolist() == [0, 1, 2], p.indptr\n"
+        "assert p.indices.tolist() == [0, 2], p.indices\n"
+        "assert p.coo_slots.tolist() == [1, 0, 1], p.coo_slots\n"
+        "assert native.available()\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"
+
+
 def test_port_sources_import_no_jax():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+feddlib_tpu\b"
                      r"|from\s+feddlib_tpu\b|import\s+feddlib_tpu\.|"
