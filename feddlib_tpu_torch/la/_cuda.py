@@ -10,7 +10,8 @@ sources are unchanged.
 
 Every C entry launches on the caller's stream and returns
 `cudaGetLastError()`; `check()` raises on a non-zero code.  Each wrapper
-adds one to its entry of `launch_counts` where it launches its kernel.
+adds one to its counter `kernel.<name>` of `utils/timers.py` where it
+launches its kernel; `launch_counts` reads those five counters.
 """
 
 from __future__ import annotations
@@ -21,8 +22,11 @@ import os
 import shutil
 import subprocess
 import threading
+from collections.abc import Mapping
 
 import torch
+
+from feddlib_tpu_torch.utils import timers
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -31,10 +35,27 @@ SOURCES = ("permute.cu", "sell.cu", "dense_gemv.cu", "block_sell.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# launches per kernel since the last reset_launch_counts()
-launch_counts = {"permute_gather": 0, "sell_spmv": 0,
-                 "dense_gemv_f32": 0, "dense_gemv_bf16": 0,
-                 "block_sell_spmv": 0}
+KERNELS = ("permute_gather", "sell_spmv", "dense_gemv_f32",
+           "dense_gemv_bf16", "block_sell_spmv")
+
+
+class _LaunchCounts(Mapping):
+    """Launches per kernel since the last reset_launch_counts(): the
+    registry's counters `kernel.<name>`, read where they are kept."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in KERNELS:
+            raise KeyError(name)
+        return timers.counters().get("kernel." + name, 0)
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+launch_counts = _LaunchCounts()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -56,8 +77,7 @@ build_log = ""
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    timers.reset_counters(*("kernel." + k for k in KERNELS))
 
 
 def _nvcc() -> str:

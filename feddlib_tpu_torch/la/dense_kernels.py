@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from feddlib_tpu_torch.la import _cuda
+from feddlib_tpu_torch.utils import timers
 
 
 def dense_block_mv_plain(blocks: torch.Tensor, xs: torch.Tensor
@@ -49,7 +50,7 @@ def _launch(entry: str, counter: str, blocks, xs, store_dtype):
         blocks.data_ptr(), xs.data_ptr(), y.data_ptr(), P, R, W,
         _cuda.stream_of(blocks))
     _cuda.check(rc, entry)
-    _cuda.launch_counts[counter] += 1
+    timers.count("kernel." + counter)
     return y
 
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch.la import _cuda
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
 
 
@@ -41,7 +42,7 @@ def permute_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), idx.data_ptr(), y.data_ptr(), idx.shape[0],
         _cuda.stream_of(x))
     _cuda.check(rc, "permute_gather")
-    _cuda.launch_counts["permute_gather"] += 1
+    timers.count("kernel.permute_gather")
     return y
 
 

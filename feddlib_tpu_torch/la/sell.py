@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch.la import _cuda
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.la.permute import permute_op
 from feddlib_tpu_torch.utils.device import resolve_device
 
@@ -80,7 +81,7 @@ def sell_spmv(vals, pidx, bids, x2d, E):
         vals.data_ptr(), pidx.data_ptr(), bids.data_ptr(), x2d.data_ptr(),
         y.data_ptr(), nchunks, bids.shape[1], E, _cuda.stream_of(vals))
     _cuda.check(rc, "sell_spmv")
-    _cuda.launch_counts["sell_spmv"] += 1
+    timers.count("kernel.sell_spmv")
     return y
 
 
@@ -155,7 +156,7 @@ def block_sell_slices(hvals, hcols, slice_ptr, row_of, x, n_rows):
         row_of.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows, nslices, d,
         x.shape[1], _cuda.stream_of(x))
     _cuda.check(rc, "block_sell_slices")
-    _cuda.launch_counts["block_sell_spmv"] += 1
+    timers.count("kernel.block_sell_spmv")
     return y
 
 

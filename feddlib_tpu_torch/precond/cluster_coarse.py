@@ -18,11 +18,11 @@ f32 for the products and accumulate in f32.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import scipy.sparse as sps
 import torch
+
+from feddlib_tpu_torch.utils import timers
 
 
 def _round_up(x, m):
@@ -121,7 +121,9 @@ class PaddedTwoLevelSchwarz:
                  A_padded_op=None, l1_store_dtype=None,
                  coarse_store_dtype=None):
         """l1_store_dtype=torch.bfloat16 halves the level-1 inverse's bytes
-        (kernel B4, f32 accumulation)."""
+        (kernel B4, f32 accumulation).  `timings` holds the seconds of the
+        synchronised spans `prec.level1`, `prec.gdsw` and
+        `prec.coarse_layout` (utils/timers.py)."""
         from feddlib_tpu_torch.la.dense_blocks import DenseBlockSchwarz
         from feddlib_tpu_torch.precond.gdsw import GDSWCoarseOperator
 
@@ -138,42 +140,40 @@ class PaddedTwoLevelSchwarz:
         else:
             self.A_op = None
         dev = db.device
-        t0 = time.perf_counter()
-        self.level1 = DenseBlockSchwarz(A, db, dtype=dtype,
-                                        store_dtype=l1_store_dtype)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        node_sets = [np.asarray(ix)
-                     for ix in part.repeated_map.partition_indices]
-        umap = part.unique_map if dof_map is None else dof_map
-        co = GDSWCoarseOperator(
-            A, umap, node_part_sets=node_sets,
-            points=part.mesh.points, dofs_per_node=dofs_per_node,
-            null_space=null_space, dirichlet_mask=dirichlet_mask,
-            variant=variant, dtype=torch.float64)
-        t2 = time.perf_counter()
-        # A0⁻¹ on the card: ship the sparse A0 and invert in f32 there (the
-        # coarse solve is preconditioner-only; the f64 outer refinement
-        # absorbs the f32 inverse); on the CPU the host f64 inverse
-        if dev.type == "cuda":
-            A0s = co.A0_sparse().tocoo()
-            ncc = co.n_coarse
-            dense = torch.zeros((ncc, ncc), dtype=torch.float32, device=dev)
-            dense[torch.as_tensor(A0s.row.astype(np.int64), device=dev),
-                  torch.as_tensor(A0s.col.astype(np.int64), device=dev)] = \
-                torch.as_tensor(A0s.data, dtype=torch.float32, device=dev)
-            A0_inv = torch.linalg.inv(dense)
-        else:
-            A0_inv = co.A0_inv.cpu().numpy()
-        self.coarse = PaddedClusterCoarse(co.phi.to_scipy(), A0_inv, db,
-                                          dtype=dtype,
-                                          store_dtype=coarse_store_dtype)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        self.timings = {"level1_s": t1 - t0, "gdsw_s": t2 - t1,
-                        "coarse_layout_s": t3 - t2}
+        with timers.timer("prec.level1", sync=True) as level1:
+            self.level1 = DenseBlockSchwarz(A, db, dtype=dtype,
+                                            store_dtype=l1_store_dtype)
+        with timers.timer("prec.gdsw", sync=True) as gdsw:
+            node_sets = [np.asarray(ix)
+                         for ix in part.repeated_map.partition_indices]
+            umap = part.unique_map if dof_map is None else dof_map
+            co = GDSWCoarseOperator(
+                A, umap, node_part_sets=node_sets,
+                points=part.mesh.points, dofs_per_node=dofs_per_node,
+                null_space=null_space, dirichlet_mask=dirichlet_mask,
+                variant=variant, dtype=torch.float64)
+        with timers.timer("prec.coarse_layout", sync=True) as layout:
+            # A0⁻¹ on the card: ship the sparse A0 and invert in f32 there
+            # (the coarse solve is preconditioner-only; the f64 outer
+            # refinement absorbs the f32 inverse); on the CPU the host f64
+            # inverse
+            if dev.type == "cuda":
+                A0s = co.A0_sparse().tocoo()
+                ncc = co.n_coarse
+                dense = torch.zeros((ncc, ncc), dtype=torch.float32,
+                                    device=dev)
+                dense[torch.as_tensor(A0s.row.astype(np.int64), device=dev),
+                      torch.as_tensor(A0s.col.astype(np.int64),
+                                      device=dev)] = \
+                    torch.as_tensor(A0s.data, dtype=torch.float32, device=dev)
+                A0_inv = torch.linalg.inv(dense)
+            else:
+                A0_inv = co.A0_inv.cpu().numpy()
+            self.coarse = PaddedClusterCoarse(co.phi.to_scipy(), A0_inv, db,
+                                              dtype=dtype,
+                                              store_dtype=coarse_store_dtype)
+        self.timings = {"level1_s": level1.seconds, "gdsw_s": gdsw.seconds,
+                        "coarse_layout_s": layout.seconds}
         self.n_coarse = self.coarse.nc
 
     def padded_operator(self):

@@ -15,15 +15,25 @@ Conventions (as in the JAX package):
   does inside shard_map; without one the dots are this process's;
 - `solve(kind, A_fn, A_ops, b, M_fn=..., M_ops=...)` keeps the
   `(fn, operands)` operator protocol of `solve_jit`: fn(ops, x) → y.
+
+Spans (utils/timers.py): `krylov.gmres` / `krylov.cg` around a loop;
+while the registry is observed (`timers.observed()`: a subscriber or a
+running profiler) also `operator.apply` around each A(x), `precond.apply`
+around each M(x) where a preconditioner is given and `krylov.sync` around
+GMRES's host copy.  Counters `krylov.iterations` and `krylov.cycles`
+(restarts; one for CG).
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from feddlib_tpu_torch.utils import timers
 
 
 @dataclass
@@ -59,6 +69,33 @@ class KrylovResult:
 
 def _identity(x):
     return x
+
+
+_NO_SPAN = nullcontext()
+
+
+def _no_span(name: str):
+    return _NO_SPAN
+
+
+def _spanned(name: str, fn: Callable) -> Callable:
+    def call(x):
+        with timers.timer(name):
+            return fn(x)
+    return call
+
+
+def _iteration_spans(A, M):
+    """(A, M, span) for one loop: while the registry is observed, A and M
+    each call a span (M only where it is a preconditioner) and `span` is
+    `timers.timer`; unobserved, the bare operators and no span, so that an
+    iteration costs nothing untraced.  Decided once a loop."""
+    M = M or _identity
+    if not timers.observed():
+        return A, M, _no_span
+    return (_spanned("operator.apply", A),
+            M if M is _identity else _spanned("precond.apply", M),
+            timers.timer)
 
 
 def _norm(a: torch.Tensor) -> torch.Tensor:
@@ -114,7 +151,13 @@ def cg(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
 
 def cg_loop(A, M, b, x0, tol, maxiter, record=False, axis=None):
+    with timers.timer("krylov.cg"):
+        return _cg_loop(A, M, b, x0, tol, maxiter, record, axis)
+
+
+def _cg_loop(A, M, b, x0, tol, maxiter, record, axis):
     dot, norm, _ = _make_reducers(axis)
+    A, M, _ = _iteration_spans(A, M)
     x = x0
     r = b - A(x0)
     z = M(r)
@@ -138,6 +181,8 @@ def cg_loop(A, M, b, x0, tol, maxiter, record=False, axis=None):
         rel = float(norm(r)) / bnorm  # the iteration's one host sync
         if record:
             hist.append(rel)
+    timers.count("krylov.cycles")
+    timers.count("krylov.iterations", k)
     return x, k, rel, hist
 
 
@@ -165,7 +210,14 @@ def gmres(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
 
 def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False,
                left=False, axis=None):
+    with timers.timer("krylov.gmres"):
+        return _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left,
+                           axis)
+
+
+def _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left, axis):
     _, norm, allsum = _make_reducers(axis)
+    A, M, span = _iteration_spans(A, M)
     n = b.shape[0]
     m = min(restart, maxiter)
     hdt = np.dtype(str(b.dtype).replace("torch.", ""))  # host Givens dtype
@@ -202,7 +254,9 @@ def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False,
             V[j + 1] = w / torch.where(wnorm == 0, torch.ones_like(wnorm),
                                        wnorm)
             # the iteration's one host sync: the new Hessenberg column
-            col = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy().astype(hdt)
+            with span("krylov.sync"):
+                col = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+            col = col.astype(hdt)
             H_col = np.zeros(m + 1, hdt)
             H_col[: j + 2] = col
             for i in range(j):
@@ -229,6 +283,8 @@ def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False,
             num = g[i] - H[i] @ y
             y[i] = num / (H[i, i] if H[i, i] != 0 else 1.0)
         dx = V[:j].T @ torch.as_tensor(y[:j], device=b.device)
+        timers.count("krylov.cycles")
+        timers.count("krylov.iterations", j)
         return x + (dx if left else M(dx)), j, float(res)
 
     x = x0

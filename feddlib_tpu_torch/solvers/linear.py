@@ -34,6 +34,7 @@ import torch
 
 from feddlib_tpu_torch.la.block import BlockVector
 from feddlib_tpu_torch.mesh.partition import MeshPartition
+from feddlib_tpu_torch.utils import timers
 
 
 def _hashable(v):
@@ -395,7 +396,14 @@ class LinearSolver:
                      maxiter, restart):
         """f64 residual refinement around an f32 inner GMRES — padded SELL
         SpMV + dense-block restricted Schwarz (+ padded GDSW coarse level),
-        the whole inner loop in PADDED cluster space."""
+        the whole inner loop in PADDED cluster space.  A span `solve.mixed`
+        (utils/timers.py); a cache build adds the synchronised spans
+        `mixed.partition` and `mixed.layout`, and `prec.setup`."""
+        with timers.timer("solve.mixed"):
+            return self._mixed(problem, A, b, params, tol, maxiter, restart)
+
+    def _mixed(self, problem, A, b: BlockVector, params, tol, maxiter,
+               restart):
         from feddlib_tpu_torch.la.dense_blocks import (DenseBlockSchwarz,
                                                        DenseBlockSpMV)
         from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
@@ -427,41 +435,44 @@ class LinearSolver:
             dom0 = problem.domains[0]
             base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
                          else dom0.mesh)
-            part = MeshPartition(base_mesh, n_clusters)
-            dof_map = problem.preconditioner._merged_dof_map(part)
+            with timers.timer("mixed.partition", sync=True):
+                part = MeshPartition(base_mesh, n_clusters)
+                dof_map = problem.preconditioner._merged_dof_map(part)
             n_pts = dom0.mesh.n_points
             d0 = (int(problem.variables[0][1])
                   if getattr(problem, "variables", None) else 0)
-            if len(problem.domains) == 1 and d0 > 0 \
-                    and A.shape[0] == n_pts * d0:
-                db32, sell32 = point_cluster_operators(
-                    A, dom0.mesh.points, n_clusters, d0)
-            else:
-                cluster = np.zeros(A.shape[0], dtype=np.int32)
-                for p, ix in enumerate(dof_map.partition_indices):
-                    cluster[ix] = p
-                db32 = DenseBlockSpMV.from_csr(A, cluster,
-                                               dtype=torch.float32,
-                                               balance=True)
-                sell32 = PaddedSplitSpMV(A, db32, dtype=torch.float32)
-            if two_level and len(problem.domains) == 1:
-                from feddlib_tpu_torch.precond.cluster_coarse import (
-                    PaddedTwoLevelSchwarz)
+            with timers.timer("mixed.layout", sync=True):
+                if len(problem.domains) == 1 and d0 > 0 \
+                        and A.shape[0] == n_pts * d0:
+                    db32, sell32 = point_cluster_operators(
+                        A, dom0.mesh.points, n_clusters, d0)
+                else:
+                    cluster = np.zeros(A.shape[0], dtype=np.int32)
+                    for p, ix in enumerate(dof_map.partition_indices):
+                        cluster[ix] = p
+                    db32 = DenseBlockSpMV.from_csr(A, cluster,
+                                                   dtype=torch.float32,
+                                                   balance=True)
+                    sell32 = PaddedSplitSpMV(A, db32, dtype=torch.float32)
+            with timers.timer("prec.setup"):
+                if two_level and len(problem.domains) == 1:
+                    from feddlib_tpu_torch.precond.cluster_coarse import (
+                        PaddedTwoLevelSchwarz)
 
-                nsp = params.get("Null Space Type", "laplace").lower()
-                nsp = "elasticity" if "elas" in nsp else "laplace"
-                prec32 = PaddedTwoLevelSchwarz(
-                    A, part, db32,
-                    dofs_per_node=A.shape[0] // base_mesh.n_points,
-                    null_space=nsp,
-                    variant=params.get("Coarse Space Variant", "GDSW"),
-                    dirichlet_mask=problem.merged_dirichlet_mask(),
-                    dof_map=dof_map,
-                    level_combination=params.get("Level Combination",
-                                                 "Multiplicative"),
-                    A_padded_op=sell32.operator())
-            else:
-                prec32 = DenseBlockSchwarz(A, db32)
+                    nsp = params.get("Null Space Type", "laplace").lower()
+                    nsp = "elasticity" if "elas" in nsp else "laplace"
+                    prec32 = PaddedTwoLevelSchwarz(
+                        A, part, db32,
+                        dofs_per_node=A.shape[0] // base_mesh.n_points,
+                        null_space=nsp,
+                        variant=params.get("Coarse Space Variant", "GDSW"),
+                        dirichlet_mask=problem.merged_dirichlet_mask(),
+                        dof_map=dof_map,
+                        level_combination=params.get("Level Combination",
+                                                     "Multiplicative"),
+                        A_padded_op=sell32.operator())
+                else:
+                    prec32 = DenseBlockSchwarz(A, db32)
             cache = {"pattern": A.pattern, "db32": db32, "sell": sell32,
                      "prec": prec32, "A_op": sell32.operator(),
                      "M_op": prec32.padded_operator()}

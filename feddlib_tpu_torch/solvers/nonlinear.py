@@ -11,6 +11,12 @@ search that halves the step while the residual is not finite or more than
 doubles.  Dirichlet handling follows the reference's residual convention:
 F = u − g on constrained dofs and J has identity rows there, so δ = g − u
 restores the BC exactly each step.
+
+Spans (utils/timers.py): `newton.solve` around `solve`, and inside it
+`newton.residual` around each residual evaluation, `newton.tangent`
+around each reassembly (both synchronised) and `newton.linear_solve`
+around each linear solve; counters `newton.iterations` and
+`newton.backtracks` (line-search halvings).
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from feddlib_tpu_torch.utils import timers
 
 
 class NonLinearSolver:
@@ -31,6 +39,15 @@ class NonLinearSolver:
     def solve(self, problem, t: float = 0.0) -> int:
         """Iterate to convergence; returns the nonlinear iteration count.
         `linear_iters` holds the Krylov iterations of each step."""
+        with timers.timer("newton.solve"):
+            return self._iterate(problem, t)
+
+    @staticmethod
+    def _residual(problem, t):
+        with timers.timer("newton.residual", sync=True):
+            return problem.calculate_residual(t)
+
+    def _iterate(self, problem, t):
         pl = problem.parameter_list
         tol = float(pl.get("relNonLinTol", 1e-6))
         abs_tol = float(pl.get("absNonLinTol", 0.0))
@@ -46,7 +63,7 @@ class NonLinearSolver:
         problem.init_vectors()
         # BC-consistent initial guess so ‖F₀‖ is meaningful
         problem.solution = problem.bc_builder.apply_to_rhs(problem.solution, t)
-        r = problem.calculate_residual(t)
+        r = self._residual(problem, t)
         norm0 = problem.residual_norm(r)
         self.linear_iters = []
         if norm0 == 0.0:
@@ -56,14 +73,16 @@ class NonLinearSolver:
         converged = False
         rnorm_prev = norm0
         while not converged and its < max_its:
-            problem.reassemble(self.method)
-            delta, lin_its = problem.linear_solver.solve_system(
-                problem, r.scale(-1.0))
+            with timers.timer("newton.tangent", sync=True):
+                problem.reassemble(self.method)
+            with timers.timer("newton.linear_solve"):
+                delta, lin_its = problem.linear_solver.solve_system(
+                    problem, r.scale(-1.0))
             self.linear_iters.append(lin_its)
             base = problem.solution
             step = 1.0
             problem.solution = base.axpy(step, delta)
-            r = problem.calculate_residual(t)
+            r = self._residual(problem, t)
             rnorm = problem.residual_norm(r)
             if line_search:
                 tries = 0
@@ -71,11 +90,13 @@ class NonLinearSolver:
                        or rnorm > 2.0 * rnorm_prev) and tries < 12:
                     step *= 0.5
                     problem.solution = base.axpy(step, delta)
-                    r = problem.calculate_residual(t)
+                    r = self._residual(problem, t)
                     rnorm = problem.residual_norm(r)
                     tries += 1
+                    timers.count("newton.backtracks")
             rnorm_prev = rnorm if math.isfinite(rnorm) else rnorm_prev
             its += 1
+            timers.count("newton.iterations")
             if criterion == "Update":
                 crit = float(delta.norm2())
                 converged = crit <= tol

@@ -22,6 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from feddlib_tpu_torch.solvers.krylov import KrylovResult
+from feddlib_tpu_torch.utils import timers
 
 
 def adaptive_solve_cycles(mesh0, source, cycles: int, theta: float = 0.5,
@@ -128,7 +129,9 @@ def iterative_refinement(A64: Callable, inner_solve: Callable,
                          max_passes: int = 8,
                          x0: Optional[torch.Tensor] = None) -> KrylovResult:
     """A64: f64 matvec.  inner_solve(r32) → approximate correction in f32
-    (a tensor or a KrylovResult; converted and accumulated in f64)."""
+    (a tensor or a KrylovResult; converted and accumulated in f64).  Each
+    pass is a span `refinement.pass` and adds one to the counter
+    `refinement.passes` (utils/timers.py)."""
     b = b.to(torch.float64)
     x = torch.zeros_like(b) if x0 is None else x0.to(torch.float64)
     bnorm = float(torch.linalg.norm(b))
@@ -139,14 +142,16 @@ def iterative_refinement(A64: Callable, inner_solve: Callable,
     rel = rnorm / bnorm
     passes = 0
     while rel > tol and passes < max_passes:
-        scale = 1.0 if rnorm == 0 else rnorm
-        d = inner_solve((r / scale).to(torch.float32))
-        if isinstance(d, KrylovResult):
-            total_inner += d.iters
-            d = d.x
-        x = x + d.to(torch.float64) * scale
-        r = b - A64(x)
-        rnorm = float(torch.linalg.norm(r))
-        rel = rnorm / bnorm
+        with timers.timer("refinement.pass"):
+            scale = 1.0 if rnorm == 0 else rnorm
+            d = inner_solve((r / scale).to(torch.float32))
+            if isinstance(d, KrylovResult):
+                total_inner += d.iters
+                d = d.x
+            x = x + d.to(torch.float64) * scale
+            r = b - A64(x)
+            rnorm = float(torch.linalg.norm(r))
+            rel = rnorm / bnorm
         passes += 1
+        timers.count("refinement.passes")
     return KrylovResult(x, total_inner, rel, rel <= tol, passes=passes)

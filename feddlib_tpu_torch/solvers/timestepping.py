@@ -32,6 +32,7 @@ import torch
 
 from feddlib_tpu_torch.fe import ops
 from feddlib_tpu_torch.la.block import BlockMatrix, BlockVector
+from feddlib_tpu_torch.utils import timers
 
 
 def butcher_table(name: str):
@@ -357,7 +358,9 @@ class DAESolverInTime:
                               newton_method: str = "Newton") -> None:
         """Each step solves the nonlinear system with the mass term folded
         in: F_dt(u) = β₀/dt M u − M acc + F(u) − f  (reference
-        updateMultistepRhs + TimeProblem residual path)."""
+        updateMultistepRhs + TimeProblem residual path).  Each step is a
+        synchronised span `time.step` (utils/timers.py), closed before the
+        observer is called."""
         from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
 
         tp, prob = self.tp, self.tp.problem
@@ -372,32 +375,34 @@ class DAESolverInTime:
         try:
             while t < self.t_end - 1e-12:
                 t_new = t + dt
-                k = min(order, len(history))
-                b0, al = bdf_coefficients(k)
-                acc = self._zeros()
-                for i, a_ in enumerate(al):
-                    acc = acc.axpy(a_ / dt, history[-(i + 1)])
-                M_acc = tp.mass_apply(acc)
-                f = (self.rhs_func(t_new) if self.rhs_func
-                     else self._zeros())
+                with timers.timer("time.step", sync=True):
+                    k = min(order, len(history))
+                    b0, al = bdf_coefficients(k)
+                    acc = self._zeros()
+                    for i, a_ in enumerate(al):
+                        acc = acc.axpy(a_ / dt, history[-(i + 1)])
+                    M_acc = tp.mass_apply(acc)
+                    f = (self.rhs_func(t_new) if self.rhs_func
+                         else self._zeros())
 
-                def residual(tt=0.0, _Macc=M_acc, _f=f, _b0=b0):
-                    r = base_residual(tt)
-                    Mu = tp.mass_apply(prob.solution).scale(_b0 / dt)
-                    r2 = r.axpy(1.0, Mu).axpy(-1.0, _Macc).axpy(-1.0, _f)
-                    return prob.bc_builder.set_vector_minus_bc(
-                        r2, prob.solution, tt)
+                    def residual(tt=0.0, _Macc=M_acc, _f=f, _b0=b0):
+                        r = base_residual(tt)
+                        Mu = tp.mass_apply(prob.solution).scale(_b0 / dt)
+                        r2 = r.axpy(1.0, Mu).axpy(-1.0, _Macc).axpy(-1.0,
+                                                                     _f)
+                        return prob.bc_builder.set_vector_minus_bc(
+                            r2, prob.solution, tt)
 
-                def bc_system(_b0=b0):
-                    combined = tp.combined_system(_b0 / dt, 1.0)
-                    return prob.bc_builder.apply_to_system(combined)
+                    def bc_system(_b0=b0):
+                        combined = tp.combined_system(_b0 / dt, 1.0)
+                        return prob.bc_builder.apply_to_system(combined)
 
-                prob.calculate_residual = residual
-                prob.bc_system = bc_system
-                solver.solve(prob, t_new)
-                history.append(prob.solution.copy())
-                if len(history) > order:
-                    history.pop(0)
+                    prob.calculate_residual = residual
+                    prob.bc_system = bc_system
+                    solver.solve(prob, t_new)
+                    history.append(prob.solution.copy())
+                    if len(history) > order:
+                        history.pop(0)
                 if self.observer:
                     self.observer(t_new, prob.solution)
                 t = t_new

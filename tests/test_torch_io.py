@@ -133,7 +133,8 @@ def test_timers_match_jax():
 
 def test_profile_trace_writes_annotated_trace(tmp_path):
     """`profile_trace` writes a Chrome trace holding each timer scope as a
-    named range (on the CPU here: CPU activity only)."""
+    range named `fedd/<name>` (on the CPU here: CPU activity only); once
+    the profile has ended, a scope opens no range."""
     from feddlib_tpu_torch.utils import timers
 
     timers.reset()
@@ -142,10 +143,14 @@ def test_profile_trace_writes_annotated_trace(tmp_path):
             with timers.timer("apply"):
                 torch.ones(64, 64) @ torch.ones(64, 64)
     names = {e.key for e in prof.key_averages()}
-    assert {"solve", "solve/apply"} <= names
+    assert {"fedd/solve", "fedd/apply"} <= names
     text = (tmp_path / "trace.json").read_text()
-    assert '"solve/apply"' in text
-    assert not timers._trace_enabled
+    assert '"fedd/apply"' in text
+    assert set(timers.totals()) == {"solve", "solve/apply"}
+    assert not torch.autograd._profiler_enabled()
+    with timers.timer("after") as span:
+        pass
+    assert span._ann is None
     timers.reset()
 
 

@@ -51,6 +51,9 @@ JAX_ONLY = {
     "parallel/spmd.py:DeviceAxis.shard_map": "parallel/spmd.py:DeviceAxis.ppermute",
     # the jnp.float64 alias: the f64 values of the torch fast path
     "fe/fast_assembly.py:f64": "fe/fast_assembly.py:assemble_fast",
+    # the switch that opens TraceAnnotations: every span opens its
+    # record_function whenever a torch.profiler profile runs
+    "utils/timers.py:enable_profiler_annotations": "utils/timers.py:Span",
 }
 
 
