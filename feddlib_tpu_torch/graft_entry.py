@@ -31,7 +31,7 @@ def entry(device="cuda"):
     coordinates and applies it to x."""
     from feddlib_tpu_torch.fe import assembly as asm
     from feddlib_tpu_torch.fe.domain import Domain
-    from feddlib_tpu_torch.la.csr import CsrMatrix, assemble_csr_data
+    from feddlib_tpu_torch.la.csr import assemble_csr_data
 
     dom = Domain.structured(3, 12, device=device)
     pattern = dom.pattern(
@@ -43,7 +43,7 @@ def entry(device="cuda"):
     nnz = pattern.nnz
     plan = pattern._device_plan(dom.device)
     # ELL plan (host-built, uploaded once)
-    ell_cols, slot_of = CsrMatrix(pattern, device=dom.device)._ell_plan()
+    ell_cols, slot_of = pattern.ell_plan(dom.device)
 
     def step(vert_coords, x):
         """Assemble the Poisson stiffness from geometry and apply it to x."""

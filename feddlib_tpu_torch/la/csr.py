@@ -14,7 +14,12 @@ Counterpart of feddlib_tpu/la/csr.py.  The insert → fillComplete flow is:
 
 The apply is a plain-torch padded-ELL gather (the f64 refinement residual
 of the mixed-precision solve; no kernel computes it in the JAX package
-either):  y[i] = sum_k data[slot_of[k, i]] * x[ell_cols[k, i]].
+either):  y[i] = sum_k data[slot_of[k, i]] * x[ell_cols[k, i]].  Its
+gather plan (ell_cols, slot_of) depends on the pattern alone, so it lives
+on the `SparsityPattern` (`ell_plan`), built on the host and uploaded once
+per device, and every `CsrMatrix` on that pattern shares it: the
+BC-applied, scaled and summed copies a solve or a Newton step makes of one
+operator build nothing.
 """
 
 from __future__ import annotations
@@ -26,11 +31,21 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch import native
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
 
 # symbolic-union cache of CsrMatrix.add across reassemblies:
 # (id(patA), id(patB)) → (patA, patB, union pattern)
 _union_pattern_cache: dict = {}
+
+
+def _device_key(device) -> torch.device:
+    """`device` with its index made explicit, so that "cuda" and "cuda:0"
+    key one plan."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 @dataclass(frozen=True)
@@ -132,6 +147,35 @@ class SparsityPattern:
             plans[device] = plan
         return plan
 
+    def ell_plan(self, device):
+        """(ell_cols [K, n_rows], slot_of [K, n_rows]) int64: the padded-ELL
+        gather plan of the apply (K the longest row; padding column 0, slot
+        nnz), built on the host and uploaded once per device, then shared
+        by every CsrMatrix on this pattern.  Each build adds one to the
+        counter `csr.ell_plan_builds`, each reuse one to
+        `csr.ell_plan_hits` (utils/timers.py)."""
+        plans = getattr(self, "_ell_plans", None)
+        if plans is None:
+            plans = {}
+            object.__setattr__(self, "_ell_plans", plans)
+        device = _device_key(device)
+        plan = plans.get(device)
+        if plan is not None:
+            timers.count("csr.ell_plan_hits")
+            return plan
+        lens = self.row_lengths()
+        K = max(int(lens.max()) if len(lens) else 1, 1)
+        ell_cols = np.zeros((K, self.n_rows), dtype=np.int64)
+        slot_of = np.full((K, self.n_rows), self.nnz, dtype=np.int64)
+        pos = np.arange(self.nnz) - np.repeat(self.indptr[:-1], lens)
+        r = self.rows_of_slots()
+        ell_cols[pos, r] = self.indices
+        slot_of[pos, r] = np.arange(self.nnz)
+        plan = plans[device] = (torch.as_tensor(ell_cols, device=device),
+                                torch.as_tensor(slot_of, device=device))
+        timers.count("csr.ell_plan_builds")
+        return plan
+
 
 def segment_sum_sorted(vals: torch.Tensor, order: torch.Tensor,
                        lengths: torch.Tensor) -> torch.Tensor:
@@ -168,7 +212,8 @@ class CsrMatrix:
     """Sparse matrix = static SparsityPattern + device value buffer.
 
     Values are stored in CSR slot order (`data[k]` ↔ `pattern.indices[k]`);
-    the ELL gather plan for the apply is built lazily and cached."""
+    the ELL gather plan of the apply is the pattern's (`ell_plan`), shared
+    with every matrix on it."""
 
     def __init__(self, pattern: SparsityPattern, data=None,
                  dtype=torch.float64, device="cuda"):
@@ -178,7 +223,6 @@ class CsrMatrix:
         if data is None:
             data = torch.zeros(pattern.nnz, dtype=dtype, device=self.device)
         self.data = torch.as_tensor(data, dtype=dtype, device=self.device)
-        self._ell = None  # (ell_cols [K, n_rows], slot_of [K, n_rows])
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -237,19 +281,7 @@ class CsrMatrix:
 
     # -- ELL plan -----------------------------------------------------------
     def _ell_plan(self):
-        if self._ell is None:
-            pat = self.pattern
-            lens = pat.row_lengths()
-            K = max(int(lens.max()) if len(lens) else 1, 1)
-            ell_cols = np.zeros((K, pat.n_rows), dtype=np.int64)
-            slot_of = np.full((K, pat.n_rows), pat.nnz, dtype=np.int64)
-            pos = np.arange(pat.nnz) - np.repeat(pat.indptr[:-1], lens)
-            r = pat.rows_of_slots()
-            ell_cols[pos, r] = pat.indices
-            slot_of[pos, r] = np.arange(pat.nnz)
-            self._ell = (torch.as_tensor(ell_cols, device=self.device),
-                         torch.as_tensor(slot_of, device=self.device))
-        return self._ell
+        return self.pattern.ell_plan(self.device)
 
     def ell_arrays(self):
         """(ell_cols [K, n_rows], ell_data [K, n_rows]): transposed ELL
