@@ -38,6 +38,11 @@ from feddlib_tpu_torch.la.dense_kernels import (dense_block_mv,
                                                 dense_block_mv_lowp,
                                                 dense_block_mv_lowp_plain)
 from feddlib_tpu_torch.la.permute import PermutationGather, permute_op
+from feddlib_tpu_torch.utils import timers
+
+# the most bytes the device factor of the level-1 blocks holds at once
+# beyond the stored inverse (`DenseBlockSchwarz`)
+FACTOR_CHUNK_BYTES = 16 * 2**30
 
 
 def _round_up(x, m):
@@ -246,9 +251,12 @@ class DenseBlockSchwarz:
     the owned rows of the inverses are formed: inv [P, R, W].
 
     Factorization: on the card, in the working dtype — batched Cholesky and
-    two triangular solves for symmetric matrices, else a batched LU solve;
-    on the CPU, host LAPACK in f64.  `store_dtype=torch.bfloat16` stores
-    the inverse in bf16 (kernel B4 applies it with f32 accumulation)."""
+    two triangular solves for symmetric matrices, else a batched LU solve,
+    in chunks of clusters whose transient stays within
+    `FACTOR_CHUNK_BYTES` (the counter `level1.factor_chunks`; one chunk
+    where all fit); on the CPU, host LAPACK in f64.
+    `store_dtype=torch.bfloat16` stores the inverse in bf16 (kernel B4
+    applies it with f32 accumulation)."""
 
     def __init__(self, A: CsrMatrix, db: DenseBlockSpMV, dtype=None,
                  device_factor: Optional[bool] = None, store_dtype=None):
@@ -262,8 +270,6 @@ class DenseBlockSchwarz:
         self.db = db
         if device_factor is None:
             device_factor = dtype == torch.float32 and dev.type == "cuda"
-        # guard exactly-singular subdomain blocks of the f32 device factor
-        shift = 1e-6 if device_factor else 0.0
 
         old_of_pad = db.old_of_pad.cpu().numpy()  # [M], pad → n
         ghost_idx = db.ghost_idx.cpu().numpy()    # [P, G] padded ids, pad → M
@@ -284,50 +290,65 @@ class DenseBlockSchwarz:
             ov = colmap[p]
             real = np.nonzero(ov < n)[0]
             sub = spi[ov[real]][:, ov[real]].tocoo()
-            flat_l.append(p * W * W + real[sub.row].astype(np.int64) * W
+            flat_l.append(real[sub.row].astype(np.int64) * W
                           + real[sub.col])
             slot_l.append(sub.data.astype(np.int64) - 1)
-        flat = torch.as_tensor(np.concatenate(flat_l), device=dev)
-        slots = torch.as_tensor(np.concatenate(slot_l), device=dev)
-        eye_idx = (torch.arange(P, device=dev)[:, None] * (W * W)
-                   + torch.arange(W, device=dev)[None, :] * (W + 1)
-                   ).reshape(-1)
-        blocks_sq = torch.zeros(P * W * W, dtype=dtype, device=dev)
-        blocks_sq[eye_idx] = 1.0
-        blocks_sq[flat] = A.data.to(dtype)[slots]
-        blocks_sq = blocks_sq.reshape(P, W, W)
-        del flat, slots, eye_idx
-        if shift:
-            diag = torch.arange(W, device=dev)
-            blocks_sq[:, diag, diag] += shift * blocks_sq.abs().max()
+        data = A.data.to(dtype)
+
+        def blocks(p0, p1):
+            """The subdomain matrices of clusters p0..p1-1, [p1-p0, W, W],
+            identity on the pad lanes."""
+            k = p1 - p0
+            flat = torch.as_tensor(np.concatenate(
+                [f + q * W * W for q, f in enumerate(flat_l[p0:p1])]),
+                device=dev)
+            slots = torch.as_tensor(np.concatenate(slot_l[p0:p1]),
+                                    device=dev)
+            eye_idx = (torch.arange(k, device=dev)[:, None] * (W * W)
+                       + torch.arange(W, device=dev)[None, :] * (W + 1)
+                       ).reshape(-1)
+            b = torch.zeros(k * W * W, dtype=dtype, device=dev)
+            b[eye_idx] = 1.0
+            b[flat] = data[slots]
+            return b.reshape(k, W, W)
+
         # the Restricted combine reads only the owned rows: row j of A⁻¹ is
         # (A⁻ᵀ e_j)ᵀ, so one batched solve with R right-hand sides gives
         # inv[:, :R, :] and skips the ghost rows
         if device_factor:
-            eye_r = torch.eye(W, R, dtype=dtype, device=dev)
-            self.inv = None
-            if _blocks_symmetric(A):
-                L, info = torch.linalg.cholesky_ex(blocks_sq)
-                if bool((info == 0).all()):
-                    z = torch.linalg.solve_triangular(
-                        L, eye_r.expand(P, W, R), upper=False)
-                    x = torch.linalg.solve_triangular(
-                        L.transpose(1, 2), z, upper=True)  # A⁻¹[:, :R]
-                    del L, z
-                    if bool(torch.isfinite(x).all()):
-                        # symmetric A ⇒ rows == columns
-                        self.inv = x.transpose(1, 2).contiguous()
-                    del x
-            if self.inv is None:
-                x = torch.linalg.solve(blocks_sq.transpose(1, 2), eye_r)
-                self.inv = x.transpose(1, 2).contiguous()  # [P, R, W]
-                del x
-            del blocks_sq
+            # clusters are factored in chunks whose transient (the blocks,
+            # their factor, the right-hand sides and the solution) stays
+            # within FACTOR_CHUNK_BYTES; one chunk where all fit
+            per = (2 * W * W + 2 * W * R) * torch.finfo(dtype).bits // 8
+            step = max(1, min(P, FACTOR_CHUNK_BYTES // per))
+            chunks = [(p0, min(p0 + step, P)) for p0 in range(0, P, step)]
+            timers.count("level1.factor_chunks", len(chunks))
+            # a diagonal guard against exactly-singular blocks, 1e-6 of
+            # the largest entry of all the blocks: the stored values they
+            # hold, and the identity's 1 on every diagonal lane that holds
+            # none
+            seen = np.zeros(len(data), bool)
+            n_diag = 0
+            for f, sl in zip(flat_l, slot_l):
+                seen[sl] = True
+                n_diag += int(np.count_nonzero(f % (W + 1) == 0))
+            amax = data[torch.as_tensor(np.flatnonzero(seen),
+                                        device=dev)].abs().max()
+            if n_diag < P * W:
+                amax = torch.clamp_min(amax, 1.0)
+            symmetric = _blocks_symmetric(A)
+            diag = torch.arange(W, device=dev)
+            self.inv = torch.empty((P, R, W), dtype=dtype, device=dev)
+            for p0, p1 in chunks:
+                blocks_sq = blocks(p0, p1)
+                blocks_sq[:, diag, diag] += 1e-6 * amax
+                self.inv[p0:p1] = _owned_rows_of_inverse(blocks_sq, R,
+                                                         symmetric)
+                del blocks_sq
         else:
             import scipy.linalg as sla
 
-            blocks_np = blocks_sq.cpu().numpy().astype(np.float64)
-            del blocks_sq
+            blocks_np = blocks(0, P).cpu().numpy().astype(np.float64)
             inv_r = np.empty((P, R, W), np.float64)
             eye_np = np.eye(W, R)
 
@@ -376,6 +397,30 @@ def dense_block_schwarz_op(ops, rp):
     else:
         z = _batched_gemv(inv, rs)  # [P, R]
     return z.reshape(-1)  # Restricted combine = owned rows only
+
+
+def _owned_rows_of_inverse(blocks_sq: torch.Tensor, R: int,
+                           symmetric: bool) -> torch.Tensor:
+    """The first R rows of each block's inverse, [k, R, W] (a view): a
+    batched Cholesky and two triangular solves for symmetric blocks, else
+    (or where that fails) a batched LU solve, in the blocks' dtype."""
+    k, W = blocks_sq.shape[0], blocks_sq.shape[1]
+    eye_r = torch.eye(W, R, dtype=blocks_sq.dtype, device=blocks_sq.device)
+    if symmetric:
+        L, info = torch.linalg.cholesky_ex(blocks_sq)
+        x = None
+        if bool((info == 0).all()):
+            z = torch.linalg.solve_triangular(
+                L, eye_r.expand(k, W, R), upper=False)
+            x = torch.linalg.solve_triangular(
+                L.transpose(1, 2), z, upper=True)  # A⁻¹[:, :R]
+            del z
+        del L
+        if x is not None and bool(torch.isfinite(x).all()):
+            return x.transpose(1, 2)  # symmetric A ⇒ rows == columns
+        del x
+    x = torch.linalg.solve(blocks_sq.transpose(1, 2), eye_r)
+    return x.transpose(1, 2)
 
 
 def _blocks_symmetric(A: CsrMatrix, tol: float = 1e-12) -> bool:

@@ -119,11 +119,14 @@ class PaddedTwoLevelSchwarz:
                  dirichlet_mask=None, dtype=torch.float32,
                  dof_map=None, level_combination: str = "Multiplicative",
                  A_padded_op=None, l1_store_dtype=None,
-                 coarse_store_dtype=None):
+                 coarse_store_dtype=None, blocks=None):
         """l1_store_dtype=torch.bfloat16 halves the level-1 inverse's bytes
-        (kernel B4, f32 accumulation).  `timings` holds the seconds of the
-        synchronised spans `prec.level1`, `prec.gdsw` and
-        `prec.coarse_layout` (utils/timers.py)."""
+        (kernel B4, f32 accumulation).  `blocks`, the per-block specs of
+        `GDSWCoarseOperator`, replace the coarse space of `part`'s own
+        nodes (`dofs_per_node`, `null_space`), as a P2 field needs.
+        `timings` holds the seconds of the synchronised spans
+        `prec.level1`, `prec.gdsw` and `prec.coarse_layout`
+        (utils/timers.py)."""
         from feddlib_tpu_torch.la.dense_blocks import DenseBlockSchwarz
         from feddlib_tpu_torch.precond.gdsw import GDSWCoarseOperator
 
@@ -144,14 +147,14 @@ class PaddedTwoLevelSchwarz:
             self.level1 = DenseBlockSchwarz(A, db, dtype=dtype,
                                             store_dtype=l1_store_dtype)
         with timers.timer("prec.gdsw", sync=True) as gdsw:
-            node_sets = [np.asarray(ix)
-                         for ix in part.repeated_map.partition_indices]
+            node_sets = None if blocks is not None else [
+                np.asarray(ix) for ix in part.repeated_map.partition_indices]
             umap = part.unique_map if dof_map is None else dof_map
             co = GDSWCoarseOperator(
                 A, umap, node_part_sets=node_sets,
                 points=part.mesh.points, dofs_per_node=dofs_per_node,
                 null_space=null_space, dirichlet_mask=dirichlet_mask,
-                variant=variant, dtype=torch.float64)
+                variant=variant, dtype=torch.float64, blocks=blocks)
         with timers.timer("prec.coarse_layout", sync=True) as layout:
             # A0⁻¹ on the card: ship the sparse A0 and invert in f32 there
             # (the coarse solve is preconditioner-only; the f64 outer

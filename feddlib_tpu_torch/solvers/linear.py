@@ -461,10 +461,15 @@ class LinearSolver:
 
                     nsp = params.get("Null Space Type", "laplace").lower()
                     nsp = "elasticity" if "elas" in nsp else "laplace"
+                    # a one-field problem takes its coarse space from its
+                    # own nodes (P2: the nodes of each part's elements),
+                    # as the f64 path does
+                    blocks = (problem.preconditioner._block_specs(part, nsp)
+                              if len(problem.variables) == 1 else None)
                     prec32 = PaddedTwoLevelSchwarz(
                         A, part, db32,
                         dofs_per_node=A.shape[0] // base_mesh.n_points,
-                        null_space=nsp,
+                        null_space=nsp, blocks=blocks,
                         variant=params.get("Coarse Space Variant", "GDSW"),
                         dirichlet_mask=problem.merged_dirichlet_mask(),
                         dof_map=dof_map,
