@@ -68,8 +68,12 @@ exits non-zero):
      step's last linear solve reach 1e-8 in f64 on the host, B1, B2 and B3
      launch (each held against its plain version at this solve's shapes);
      per step the Newton count, the GMRES iterations and the seconds of
-     tangent / combined system and BCs / with_data / solve; one tangent
-     chunk on the card against the CPU; then LinElas on
+     tangent / combined system and BCs / with_data / solve, and the
+     kernel launches (B6 every residual and tangent, no torch.func chunk);
+     B6, the Neo-Hooke P1 element kernel, over all 196,608 elements with
+     and without the tangent, beside its byte bound, its plain version and
+     the torch.func path, against the plain version on the card and on the
+     CPU and against torch.func; then LinElas on
      Domain.structured(3, 8) through 10 Newmark steps in f64, checkpointed
      at step 5 and resumed in a fresh DAESolverInTime and problem: the
      resumed run must equal the uninterrupted one bit for bit;
@@ -729,20 +733,93 @@ def _min_jacobian(torch, dom, d):
     return float((small_det(Bx) / small_det(B)).min())
 
 
-def _phase9(torch, np, args, dev, hold_b123):
-    """The unsteady hyperelastic block and the checkpointed Newmark run
-    (see the module docstring)."""
+def _b6(torch, th, dom, d, params):
+    """B6 (csrc/hyperelastic.cu) over every element of `dom` at the
+    displacement d: device ms with and without the tangent, beside the
+    byte bound (vertex coordinates and displacements read once, R and K
+    written once), the plain version and the port's previous path,
+    torch.func over all elements in its chunks; the kernel against the plain
+    version on the card and on the CPU, and against torch.func, within
+    1e-12 of max |value|; the tangent symmetric and two calls bitwise
+    equal."""
+    vc = dom.vert_coords()
+    de = d.reshape(-1, 3)[dom.device_dofs(1, d.device)]
+    mu, lam = params
+    E = vc.shape[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    R, K = th.neo_hooke_p1(vc, de, mu, lam)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = _device_ms(torch, lambda: th.neo_hooke_p1(vc, de, mu, lam))
+    r_ms = _device_ms(torch, lambda: th.neo_hooke_p1(vc, de, mu, lam,
+                                                     tangent=False))
+    plain_ms = _device_ms(torch, lambda: th.neo_hooke_p1_plain(
+        vc, de, mu, lam), samples=5, calls=2)
+    r_plain_ms = _device_ms(torch, lambda: th.neo_hooke_p1_plain(
+        vc, de, mu, lam, tangent=False), samples=5, calls=2)
+
+    def autodiff(tangent=True):
+        return th.autodiff_residual_tangent(vc, de, 3, "P1", "Neo-Hooke",
+                                            params, tangent)
+
+    ad_ms = _device_ms(torch, autodiff, samples=3, calls=1)
+    r_ad_ms = _device_ms(torch, lambda: autodiff(False), samples=3, calls=1)
+    Ra, Ka = autodiff()
+    Rp, Kp = th.neo_hooke_p1_plain(vc, de, mu, lam)
+    Rc, Kc = th.neo_hooke_p1_plain(vc.cpu(), de.cpu(), mu, lam)
+    R2, K2 = th.neo_hooke_p1(vc, de, mu, lam)
+    R1, _ = th.neo_hooke_p1(vc, de, mu, lam, tangent=False)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = {"plain": max(rel(R, Rp), rel(K, Kp)),
+            "cpu": max(rel(R.cpu(), Rc), rel(K.cpu(), Kc)),
+            "torch_func": max(rel(R, Ra), rel(K, Ka)),
+            "symmetry": rel(K, K.transpose(1, 2))}
+    bitwise = (torch.equal(R, R2) and torch.equal(K, K2)
+               and torch.equal(R, R1))
+    n_in, n_r, n_k = 2 * E * 12 * 8, E * 12 * 8, E * 144 * 8
+    bound = (1e3 * (n_in + n_r + n_k) / PEAK_BYTES_S, "bytes")
+    r_bound = 1e3 * (n_in + n_r) / PEAK_BYTES_S
+    print(f"B6 neo_hooke_p1: elements={E} ms={ms:.5f} bound_ms="
+          f"{bound[0]:.5f} (bytes, {n_in + n_r + n_k} B) roofline="
+          f"{100 * bound[0] / ms:.1f}% residual_only_ms={r_ms:.5f} "
+          f"bound_ms={r_bound:.5f} roofline={100 * r_bound / r_ms:.1f}% "
+          f"plain_ms={plain_ms:.5f} residual_only {r_plain_ms:.5f} "
+          f"torch_func_ms={ad_ms:.3f} residual_only {r_ad_ms:.3f} "
+          f"peak_bytes={peak} rel_err={errs} bitwise_repeat={bitwise}",
+          flush=True)
+    _check(errs["plain"] <= 1e-12 and errs["cpu"] <= 1e-12
+           and errs["torch_func"] <= 1e-12, f"B6 against its plain "
+           f"version and torch.func {errs}")
+    _check(errs["symmetry"] <= 1e-14, f"B6 tangent symmetry {errs}")
+    _check(bitwise, "B6 repeated and residual-only calls bitwise equal")
+    return {"ms": ms, "plain_ms": plain_ms, "bound": bound,
+            "rel_err": max(errs["plain"], errs["cpu"]),
+            "residual_only": {"ms": r_ms, "plain_ms": r_plain_ms,
+                              "bound_ms": r_bound},
+            "previous_path_ms": {"torch_func": ad_ms,
+                                 "torch_func_residual_only": r_ad_ms}}
+
+
+def _phase9(torch, np, args, dev, hold_b123, entry=None):
+    """The unsteady hyperelastic block, B6 and the checkpointed Newmark run
+    (see the module docstring).  `hold_b123` None skips the B1-B3 checks at
+    the block's shapes, `entry` None B6's kernel entry (`--only 9`)."""
     import warnings
 
-    from feddlib_tpu_torch.fe.hyperelastic import elem_hyper_residual_tangent
+    from feddlib_tpu_torch.fe import hyperelastic as th
     from feddlib_tpu_torch.la import _cuda
     from feddlib_tpu_torch.la.block import BlockVector
     from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
-    from feddlib_tpu_torch.problems import nonlin_elasticity as nle
     from feddlib_tpu_torch.solvers import linear, refinement
     from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
     from feddlib_tpu_torch.solvers.timestepping import (DAESolverInTime,
                                                         TimeProblem)
+    from feddlib_tpu_torch.utils import timers
 
     t0 = time.perf_counter()
     prob, f = _hyper(torch, args.n_hyper, {
@@ -820,6 +897,8 @@ def _phase9(torch, np, args, dev, hold_b123):
         "combined_bcs", prob.bc_builder.apply_to_system)
     prob.linear_solver.solve_system = solve_and_keep
     _cuda.reset_launch_counts()
+    timers.reset_counters("hyper.autodiff_chunks", "newton.iterations",
+                          "newton.backtracks")
     t1 = time.perf_counter()
     try:
         drv.advance_nonlinear_bdf(order=2)
@@ -861,29 +940,28 @@ def _phase9(torch, np, args, dev, hold_b123):
     _check(float(d.reshape(-1, 3)[:, 2].min()) < 0, "body sags under load")
     for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
         _check(counts[k] > 0, f"hyperelastic block launched no {k}")
-    hold_b123(" (hyperelastic)", db, split, prec, counts)
-
-    # one tangent chunk on the card against the same chunk on the CPU
-    E = min(nle._HYPER_CHUNK, dom.n_elements)
-    vc = dom.vert_coords()[:E]
-    de = d.reshape(-1, 3)[torch.as_tensor(dom.elem_nodes()[:E],
-                                          device=dev)]
-    mat = (prob.material, prob.params)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    chunk_ms = _device_ms(torch, lambda: elem_hyper_residual_tangent(
-        vc, de, 3, "P1", *mat), samples=5, calls=2)
-    peak = torch.cuda.max_memory_allocated() - base
-    R, K = elem_hyper_residual_tangent(vc, de, 3, "P1", *mat)
-    Rc, Kc = elem_hyper_residual_tangent(vc.cpu(), de.cpu(), 3, "P1", *mat)
-    err_t = max(float((R.cpu() - Rc).abs().max() / Rc.abs().max()),
-                float((K.cpu() - Kc).abs().max() / Kc.abs().max()))
-    print(f"hyperelastic tangent chunk: elements={E} ms={chunk_ms:.3f} "
-          f"(device) peak_bytes={peak} card_vs_cpu_rel={err_t:.3e}",
-          flush=True)
-    _check(err_t <= 1e-12, f"tangent chunk card vs CPU {err_t}")
-    del prob, tp, drv, cache, db, split, prec, d, R, K, vc, de
+    # one B6 launch a residual (1 + Newton iterations + backtracks a step)
+    # and a tangent (one a Newton iteration), no torch.func chunk
+    reg = timers.counters()
+    newton = sum(st["newton"] for st in steps)
+    evals = len(steps) + 2 * newton + reg.get("newton.backtracks", 0)
+    print(f"hyperelastic evaluations: B6 launches {counts['neo_hooke_p1']} "
+          f"(residuals and tangents {evals}), torch.func chunks "
+          f"{reg.get('hyper.autodiff_chunks', 0)}", flush=True)
+    _check(counts["neo_hooke_p1"] == evals
+           and reg.get("hyper.autodiff_chunks", 0) == 0,
+           "every element evaluation one B6 launch")
+    if hold_b123 is not None:
+        hold_b123(" (hyperelastic)", db, split, prec, counts)
+    b6 = _b6(torch, th, dom, d, prob.params)
+    if entry is not None:
+        entry("B6 neo_hooke_p1", "feddlib_tpu_torch/csrc/hyperelastic.cu",
+              "none (jax.grad / jax.hessian, "
+              "feddlib_tpu/fe/hyperelastic.py:103)", counts["neo_hooke_p1"],
+              b6["rel_err"], b6["ms"], b6["plain_ms"], b6["bound"], None,
+              err_kind="rel", residual_only=b6["residual_only"],
+              previous_path_ms=b6["previous_path_ms"])
+    del prob, tp, drv, cache, db, split, prec, d
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3269,9 +3347,10 @@ def _parser():
                          "run")
     ap.add_argument("--n-medit", type=int, default=32,
                     help="cells a side of phase 16b's MEDIT cube")
-    ap.add_argument("--only", choices=["12,13", "14", "15", "16"],
+    ap.add_argument("--only", choices=["9", "12,13", "14", "15", "16"],
                     default=None,
-                    help="after the build run phases 12 and 13 alone "
+                    help="after the build run phase 9 alone (without "
+                         "its B1-B3 checks), phases 12 and 13 alone "
                          "(phase 12 without its phase 7 comparison), "
                          "phase 13a and phase 14, phases 13c/13d and "
                          "phase 15, or phase 16; no kernel entries")
@@ -3320,7 +3399,9 @@ def main(argv=None):
           f"{host_build['build_s']:.3f} s (beside nvcc)")
     _phase("1 build", t0)
     if args.only is not None:
-        if args.only == "16":
+        if args.only == "9":
+            _phase9(torch, np, args, dev, None)
+        elif args.only == "16":
             _phase16(torch, np, args, dev, host_build)
         elif args.only == "12,13":
             ref12 = _phase12(torch, np, args, dev, None)
@@ -3410,25 +3491,29 @@ def main(argv=None):
     g = torch.Generator(device=dev).manual_seed(0)
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, bound,
-              lib_ms, lib_stored_ms=None, **more):
+              lib_ms, lib_stored_ms=None, err_kind="abs", **more):
         """Appends to `kernels` (phases 4 and 5 call it too).  The SELL
         kernels have two library times: `lib_ms` over a CSR of the nonzero
         values (the same function), `lib_stored_ms` over a CSR of every
-        stored entry (the same work as the kernel, less the padding).
+        stored entry (the same work as the kernel, less the padding);
+        `lib_ms` None where no library call computes it (B6).  `err` is
+        the largest absolute error, or relative with `err_kind` "rel".
         `more` adds keys whose values are dicts of times (B2's with its
-        inputs out of L2, B4's at a stress shape, B5's three bounds)."""
+        inputs out of L2, B4's at a stress shape, B5's three bounds, B6's
+        residual-only launch and previous path)."""
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound[0], "bound_by": bound[1],
-                        "library_ms": lib_ms})
+                        f"max_{err_kind}_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1], "library_ms": lib_ms})
+        lib = "none" if lib_ms is None else f"{lib_ms:.5f}"
         stored = ""
         if lib_stored_ms is not None:
             kernels[-1]["library_stored_ms"] = lib_stored_ms
             stored = f" library_stored_ms={lib_stored_ms:.5f}"
         print(f"  {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} "
-              f"library_ms={lib_ms:.5f}{stored} bound_ms={bound[0]:.5f} "
-              f"({bound[1]}) max_abs_err={err:.3e}", flush=True)
+              f"library_ms={lib}{stored} bound_ms={bound[0]:.5f} "
+              f"({bound[1]}) max_{err_kind}_err={err:.3e}", flush=True)
         for key, val in more.items():
             kernels[-1][key] = val
             print(f"    {key}: " + " ".join(
@@ -3905,7 +3990,7 @@ def main(argv=None):
     _phase8(torch, np, args, dev, hold_b123)
     gc.collect()
     torch.cuda.empty_cache()
-    _phase9(torch, np, args, dev, hold_b123)
+    _phase9(torch, np, args, dev, hold_b123, entry)
     gc.collect()
     torch.cuda.empty_cache()
     _phase10(torch, np, args, dev, entry)

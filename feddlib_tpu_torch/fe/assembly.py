@@ -360,11 +360,16 @@ def vectorize_elem_mat(elem_mat_blocks: torch.Tensor) -> torch.Tensor:
     return elem_mat_blocks.permute(0, 1, 3, 2, 4).reshape(E, nr * dr, nc * dc)
 
 
-def assemble_vector(dof_ids: np.ndarray, elem_vecs: torch.Tensor,
+def assemble_vector(dof_ids, elem_vecs: torch.Tensor,
                     n_dofs: int) -> torch.Tensor:
     """Scatter-add element vectors [E, nloc] (node ids) or [E, nloc, comp]
     (NodeWise dofs node*comp + c) into a global vector (in a fixed order
-    on the card: `la.csr.scatter_sum`)."""
+    on the card: `la.csr.scatter_sum`).  `dof_ids` is a host array, or an
+    int64 tensor on the vectors' device with one id per value of
+    `elem_vecs` (`Domain.device_dofs`), which is used as it is."""
+    if isinstance(dof_ids, torch.Tensor):
+        return scatter_sum(elem_vecs.reshape(-1), dof_ids.reshape(-1),
+                           n_dofs)
     ids = np.asarray(dof_ids)
     if elem_vecs.dim() == 3:
         c = elem_vecs.shape[2]

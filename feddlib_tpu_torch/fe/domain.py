@@ -35,6 +35,7 @@ class Domain:
         self._vert_coords = None
         self._vert_coords_T = None
         self._patterns = {}  # cache: op-key → SparsityPattern
+        self._device_dofs = {}  # cache: (dofs per node, device) → ids
 
     # -- constructors --------------------------------------------------------
     @classmethod
@@ -151,6 +152,23 @@ class Domain:
         if dofs_per_node == 1:
             return self.mesh.elements
         return vector_dof_ids(self.mesh.elements, dofs_per_node)
+
+    def device_dofs(self, dofs_per_node: int = 1, device=None
+                    ) -> torch.Tensor:
+        """`elem_dofs(dofs_per_node)` as an int64 [E, nloc] tensor on
+        `device` (the domain's by default), built and uploaded once per
+        device: the gather index of nodal values (1) and the NodeWise dof
+        ids of vector assembly (dim)."""
+        from feddlib_tpu_torch.la.csr import _device_key
+
+        key = (dofs_per_node, _device_key(device or self.device))
+        ids = self._device_dofs.get(key)
+        if ids is None:
+            ids = torch.as_tensor(
+                self.elem_dofs(dofs_per_node).astype(np.int64),
+                device=key[1])
+            self._device_dofs[key] = ids
+        return ids
 
     # -- pattern cache ------------------------------------------------------
     def pattern(self, key, build):

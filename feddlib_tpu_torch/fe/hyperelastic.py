@@ -1,4 +1,5 @@
-"""Hyperelastic element kernels via automatic differentiation.
+"""Hyperelastic element kernels: automatic differentiation, and the closed
+form of Neo-Hooke on P1 tetrahedra.
 
 Counterpart of feddlib_tpu/fe/hyperelastic.py.  The strain-energy density
 W(F) is written once; `torch.func` gives
@@ -9,6 +10,14 @@ W(F) is written once; `torch.func` gives
 
 batched over the elements with torch.func.vmap, in float64 on the device
 of the inputs.  Total-Lagrangian kinematics: F = I + Σ_a d_a ⊗ ∇X φ_a.
+
+Neo-Hooke on 3D P1 elements (F constant on a tetrahedron) takes its closed
+form instead (`neo_hooke_p1`): the kernel of csrc/hyperelastic.cu for CUDA
+tensors, its plain version `neo_hooke_p1_plain` for CPU tensors.  Every
+other material, element or dimension keeps `torch.func`
+(`autodiff_residual_tangent`).  The counters `kernel.neo_hooke_p1` (one a
+launch) and `hyper.autodiff_chunks` (one a `torch.func` chunk) of
+utils/timers.py show which path ran.
 
 Material forms (parameters E, ν → μ, λ):
 - StVK:         W = λ/2 tr(E)² + μ E:E,  E = (FᵀF − I)/2
@@ -26,8 +35,11 @@ from torch.func import grad, hessian, vmap
 
 from feddlib_tpu_torch.fe import reference as ref
 from feddlib_tpu_torch.fe.assembly import small_det, small_inv
+from feddlib_tpu_torch.la import _cuda
+from feddlib_tpu_torch.utils import timers
 
 f64 = torch.float64
+_AUTODIFF_CHUNK = 16384
 
 
 # -- strain energy densities -------------------------------------------------
@@ -103,13 +115,13 @@ def _geometry(vert_coords):
     return small_inv(B, detB), detB.abs()
 
 
-def elem_hyper_residual_tangent(vert_coords, d_elem, dim, fe_type, material,
-                                params):
-    """Batched internal forces and consistent tangents.
-
-    vert_coords [E, dim+1, dim]; d_elem [E, nb, dim] nodal displacements.
-    Returns (R [E, nb*dim], K [E, nb*dim, nb*dim]) with NodeWise dof order.
-    """
+def autodiff_residual_tangent(vert_coords, d_elem, dim, fe_type, material,
+                              params, tangent=True):
+    """Internal forces and consistent tangents by `torch.func` (grad and,
+    with `tangent`, hessian under vmap), for any material and element, in
+    chunks of _AUTODIFF_CHUNK elements (which bound `torch.func`'s
+    memory); adds one to the counter `hyper.autodiff_chunks` a chunk.
+    Arguments and result as `elem_hyper_residual_tangent`."""
     energy = material_energy(material)
     elem_energy = _element_energy_fn(dim, fe_type, energy, params,
                                      vert_coords.device)
@@ -118,9 +130,97 @@ def elem_hyper_residual_tangent(vert_coords, d_elem, dim, fe_type, material,
     def per_elem(d, Bi, ad):
         f = lambda df: elem_energy(df.reshape(d.shape), Bi, ad)
         flat = d.reshape(-1)
+        if not tangent:
+            return grad(f)(flat)
         return grad(f)(flat), hessian(f)(flat)
 
-    return vmap(per_elem)(d_elem, Binv, adet)
+    Rs, Ks = [], []
+    for s in range(0, vert_coords.shape[0], _AUTODIFF_CHUNK):
+        timers.count("hyper.autodiff_chunks")
+        c = slice(s, s + _AUTODIFF_CHUNK)
+        out = vmap(per_elem)(d_elem[c], Binv[c], adet[c])
+        R, K = out if tangent else (out, None)
+        Rs.append(R)
+        Ks.append(K)
+    if len(Rs) == 1:
+        return Rs[0], Ks[0]
+    return torch.cat(Rs), (torch.cat(Ks) if tangent else None)
+
+
+def neo_hooke_p1_plain(vert_coords, d_elem, mu, lam, tangent=True):
+    """Plain PyTorch version of csrc/hyperelastic.cu: with g_a = B⁻ᵀ∇ξφ_a,
+    vol = |det B|/6, F = I + Σ_a d_a ⊗ g_a, J = det F, h_a = F⁻ᵀg_a,
+
+        R_(a,i) = vol [μ (F g_a)_i + (λ ln J − μ) h_(a,i)]
+        K_(a,i),(b,k) = vol [μ δ_ik g_a·g_b + λ h_(a,i) h_(b,k)
+                             + (μ − λ ln J) h_(a,k) h_(b,i)]
+
+    (the derivatives of W = μ/2 (I₁ − 3) − μ ln J + λ/2 (ln J)²).
+    vert_coords, d_elem [E, 4, 3] f64; returns (R [E, 12], K [E, 12, 12]
+    or None) in NodeWise order.  J ≤ 0 gives non-finite values."""
+    Binv, adet = _geometry(vert_coords)
+    E = vert_coords.shape[0]
+    g = torch.cat([-Binv.sum(1, keepdim=True), Binv], 1)   # [E, 4, 3]
+    vol = adet / 6.0
+    eye = torch.eye(3, dtype=f64, device=vert_coords.device)
+    F = eye + torch.einsum("eai,eak->eik", d_elem, g)
+    J = small_det(F)
+    h = torch.einsum("eki,eak->eai", small_inv(F, J), g)
+    lnJ = torch.log(J)
+    cm, c3 = vol * mu, vol * (mu - lam * lnJ)
+    Fg = torch.einsum("eik,eak->eai", F, g)
+    R = (cm[:, None, None] * Fg - c3[:, None, None] * h).reshape(E, 12)
+    if not tangent:
+        return R, None
+    gram = torch.einsum("eak,ebk->eab", g, g)
+    K = (torch.einsum("e,eab,ik->eaibk", cm, gram, eye)
+         + torch.einsum("e,eai,ebk->eaibk", vol * lam, h, h)
+         + torch.einsum("e,eak,ebi->eaibk", c3, h, h))
+    return R, K.reshape(E, 12, 12)
+
+
+def neo_hooke_p1(vert_coords, d_elem, mu, lam, tangent=True):
+    """`neo_hooke_p1_plain`'s closed form by the kernel of
+    csrc/hyperelastic.cu for CUDA tensors (one launch over all elements,
+    counter `kernel.neo_hooke_p1`), by the plain version for CPU
+    tensors."""
+    if vert_coords.device.type == "cpu":
+        return neo_hooke_p1_plain(vert_coords, d_elem, mu, lam, tangent)
+    vc = vert_coords.contiguous()
+    de = d_elem.contiguous()
+    _cuda.require_hopper(vc, de)
+    _cuda.require(vc, "vert_coords", f64, 3)
+    _cuda.require(de, "d_elem", f64, 3)
+    E = vc.shape[0]
+    if vc.shape[1:] != (4, 3) or de.shape != vc.shape:
+        raise ValueError(f"expected [E, 4, 3] inputs, got {tuple(vc.shape)} "
+                         f"and {tuple(de.shape)}")
+    R = torch.empty(E, 12, dtype=f64, device=vc.device)
+    K = (torch.empty(E, 12, 12, dtype=f64, device=vc.device) if tangent
+         else None)
+    rc = _cuda.lib().fedd_neo_hooke_p1_f64(
+        vc.data_ptr(), de.data_ptr(), R.data_ptr(),
+        K.data_ptr() if tangent else None, E, float(mu), float(lam),
+        int(tangent), _cuda.stream_of(vc))
+    _cuda.check(rc, "neo_hooke_p1")
+    timers.count("kernel.neo_hooke_p1")
+    return R, K
+
+
+def elem_hyper_residual_tangent(vert_coords, d_elem, dim, fe_type, material,
+                                params, tangent=True):
+    """Batched internal forces and consistent tangents.
+
+    vert_coords [E, dim+1, dim]; d_elem [E, nb, dim] nodal displacements.
+    Returns (R [E, nb*dim], K [E, nb*dim, nb*dim]) with NodeWise dof order;
+    K is None without `tangent`.  Neo-Hooke on 3D P1 elements takes the
+    closed form (`neo_hooke_p1`), everything else `torch.func`
+    (`autodiff_residual_tangent`).
+    """
+    if material == "Neo-Hooke" and fe_type == "P1" and dim == 3:
+        return neo_hooke_p1(vert_coords, d_elem, *params, tangent=tangent)
+    return autodiff_residual_tangent(vert_coords, d_elem, dim, fe_type,
+                                     material, params, tangent)
 
 
 def elem_hyper_energy(vert_coords, d_elem, dim, fe_type, material, params):

@@ -11,7 +11,7 @@ sources are unchanged.
 Every C entry launches on the caller's stream and returns
 `cudaGetLastError()`; `check()` raises on a non-zero code.  Each wrapper
 adds one to its counter `kernel.<name>` of `utils/timers.py` where it
-launches its kernel; `launch_counts` reads those five counters.
+launches its kernel; `launch_counts` reads those six counters.
 """
 
 from __future__ import annotations
@@ -31,12 +31,13 @@ from feddlib_tpu_torch.utils import timers
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("permute.cu", "sell.cu", "dense_gemv.cu", "block_sell.cu")
+SOURCES = ("permute.cu", "sell.cu", "dense_gemv.cu", "block_sell.cu",
+           "hyperelastic.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("permute_gather", "sell_spmv", "dense_gemv_f32",
-           "dense_gemv_bf16", "block_sell_spmv")
+           "dense_gemv_bf16", "block_sell_spmv", "neo_hooke_p1")
 
 
 class _LaunchCounts(Mapping):
@@ -69,6 +70,9 @@ _SIGNATURES = {
                             ctypes.c_int, _P],
     "fedd_dense_gemv_bf16": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                              ctypes.c_int, _P],
+    "fedd_neo_hooke_p1_f64": [_P, _P, _P, _P, ctypes.c_longlong,
+                              ctypes.c_double, ctypes.c_double, ctypes.c_int,
+                              _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """Nonlinear (hyper)elasticity problem — counterpart of
 feddlib_tpu/problems/nonlin_elasticity.py: the consistent tangent and the
-internal forces come from torch.func autodiff of the strain energy
-(fe/hyperelastic.py), evaluated in element chunks of _HYPER_CHUNK."""
+internal forces come from fe/hyperelastic.py: the closed form of Neo-Hooke
+on 3D P1 elements, `torch.func` autodiff of the strain energy otherwise."""
 
 from __future__ import annotations
 
@@ -17,25 +17,16 @@ from feddlib_tpu_torch.la.block import BlockMatrix, BlockVector
 from feddlib_tpu_torch.la.csr import CsrMatrix
 from feddlib_tpu_torch.problems.base import NonLinearProblem
 
-_HYPER_CHUNK = 16384
-
 
 def hyper_elem_residual_tangent(dom: Domain, d: torch.Tensor, material,
-                                params):
+                                params, tangent=True):
     """Element internal forces and tangents of a hyperelastic solid at the
-    NodeWise displacement d, flattened ([E·nloc], [E·nloc²]), evaluated
-    in chunks of _HYPER_CHUNK elements."""
-    vc = dom.vert_coords()
-    de = d.reshape(dom.n_nodes, dom.dim)[
-        torch.as_tensor(dom.elem_nodes(), device=d.device)]
-    Rs, Ks = [], []
-    for s in range(0, vc.shape[0], _HYPER_CHUNK):
-        R, K = elem_hyper_residual_tangent(
-            vc[s:s + _HYPER_CHUNK], de[s:s + _HYPER_CHUNK], dom.dim,
-            dom.fe_type, material, params)
-        Rs.append(R.reshape(-1))
-        Ks.append(K.reshape(-1))
-    return torch.cat(Rs), torch.cat(Ks)
+    NodeWise displacement d, flattened ([E·nloc], [E·nloc²], the second
+    None without `tangent`)."""
+    de = d.reshape(dom.n_nodes, dom.dim)[dom.device_dofs(1, d.device)]
+    R, K = elem_hyper_residual_tangent(dom.vert_coords(), de, dom.dim,
+                                       dom.fe_type, material, params, tangent)
+    return R.reshape(-1), (K.reshape(-1) if tangent else None)
 
 
 def assemble_hyper(dom: Domain, d: torch.Tensor, material, params):
@@ -48,7 +39,7 @@ def assemble_hyper(dom: Domain, d: torch.Tensor, material, params):
         dom.elem_dofs(dim), dom.elem_dofs(dim), n, n))
     K = CsrMatrix(pat, device=dom.device)
     K.assemble(Kf)
-    return asm.assemble_vector(dom.elem_dofs(dim), Rf, n), K
+    return asm.assemble_vector(dom.device_dofs(dim, Rf.device), Rf, n), K
 
 
 class NonLinElasticity(NonLinearProblem):
@@ -69,10 +60,10 @@ class NonLinElasticity(NonLinearProblem):
             self.params = (mu, lam)
         self.source = None
 
-    def _residual_tangent(self):
+    def _residual_tangent(self, tangent=True):
         return hyper_elem_residual_tangent(self.variables[0][0],
                                            self.solution[0], self.material,
-                                           self.params)
+                                           self.params, tangent)
 
     def assemble(self) -> None:
         self.init_vectors()
@@ -101,8 +92,9 @@ class NonLinElasticity(NonLinearProblem):
     def internal_forces(self) -> torch.Tensor:
         dom = self.variables[0][0]
         dim = dom.dim
-        Rf, _ = self._residual_tangent()
-        return asm.assemble_vector(dom.elem_dofs(dim), Rf, dom.n_dofs(dim))
+        Rf, _ = self._residual_tangent(tangent=False)
+        return asm.assemble_vector(dom.device_dofs(dim, Rf.device), Rf,
+                                   dom.n_dofs(dim))
 
     def assemble_source(self, f: Callable) -> None:
         """Volume load f(x) → one value per component (x component-first,

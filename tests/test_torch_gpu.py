@@ -6,7 +6,8 @@ PyTorch alone:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 Tolerances: B1 bit-exact (a gather); B2 and B5 1e-6 and B3/B4 1e-5 relative
-to max|y| (f32 sums in another order).  B3 stores reach 2.7 GB."""
+to max|y| (f32 sums in another order); B6 1e-12 (f64, another order of
+operations).  B3 stores reach 2.7 GB."""
 
 import numpy as np
 import pytest
@@ -800,6 +801,60 @@ def test_unsteady_hyperelastic_on_card_matches_cpu(hopper):
     for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
         assert _cuda.launch_counts[k] > 0
     assert _rel(d_mixed, d_cpu) < 1e-6
+
+
+def _neo_hooke_inputs(n, seed):
+    """Vertex coordinates of Domain.structured(3, n) and nodal displacements
+    that give each element a seeded deformation gradient with J uniform in
+    [0.7, 1.3] (d_a = (F_e - I) X_a + c_e), on the CPU."""
+    vc = Domain.structured(3, n, device="cpu").vert_coords()
+    rng = np.random.default_rng(seed)
+    E = vc.shape[0]
+    F = np.eye(3) + 0.15 * rng.standard_normal((E, 3, 3))
+    F *= np.cbrt(rng.uniform(0.7, 1.3, E) / np.linalg.det(F))[:, None, None]
+    d = np.einsum("eik,eak->eai", F - np.eye(3), vc.numpy())
+    d += 0.01 * rng.standard_normal((E, 1, 3))
+    return vc, torch.as_tensor(d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 1])
+def test_neo_hooke_p1_kernel_on_card(hopper, n):
+    """csrc/hyperelastic.cu against its plain version on the card and on
+    the CPU, within 1e-12 relative, at 16^3 cells (24,576 elements, a
+    ragged last tile) and at one cell (6 elements): the tangent symmetric
+    to 1e-14, two calls bitwise equal, the residual-only launch's R equal
+    to the full launch's, one `kernel.neo_hooke_p1` a call, and an
+    element with J <= 0 non-finite while the others stay equal."""
+    from feddlib_tpu_torch.fe import hyperelastic as th
+
+    mu, lam = 0.4, 0.6
+    vc, de = _neo_hooke_inputs(n, seed=7)
+    vg, dg = vc.to(hopper), de.to(hopper)
+    before = _cuda.launch_counts["neo_hooke_p1"]
+    R, K = th.neo_hooke_p1(vg, dg, mu, lam)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["neo_hooke_p1"] == before + 1
+    assert R.shape == (vc.shape[0], 12) and K.shape == (vc.shape[0], 12, 12)
+    Rp, Kp = th.neo_hooke_p1_plain(vg, dg, mu, lam)
+    Rc, Kc = th.neo_hooke_p1(vc, de, mu, lam)
+    assert _rel(R, Rp) < 1e-12 and _rel(K, Kp) < 1e-12
+    assert _rel(R.cpu(), Rc) < 1e-12 and _rel(K.cpu(), Kc) < 1e-12
+    assert _rel(K, K.transpose(1, 2)) < 1e-14
+    R2, K2 = th.neo_hooke_p1(vg, dg, mu, lam)
+    R1, K1 = th.neo_hooke_p1(vg, dg, mu, lam, tangent=False)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts["neo_hooke_p1"] == before + 3
+    assert torch.equal(R2, R) and torch.equal(K2, K)
+    assert K1 is None and torch.equal(R1, R)
+    X = vc[1].numpy()
+    bad = dg.clone()
+    bad[1] = torch.as_tensor((np.diag([-1.5, 0.0, 0.0]) @ X.T).T,
+                             device=hopper)         # J = -0.5
+    Rb, Kb = th.neo_hooke_p1(vg, bad, mu, lam)
+    keep = torch.arange(vc.shape[0], device=hopper) != 1
+    assert not torch.isfinite(Rb[1]).all() and not torch.isfinite(Kb[1]).all()
+    assert torch.equal(Rb[keep], R[keep]) and torch.equal(Kb[keep], K[keep])
 
 
 def _fsi_two_box(device, n, params):

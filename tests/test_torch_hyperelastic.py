@@ -261,3 +261,151 @@ def test_unsteady_hyperelastic_bdf2(mixed):
     assert _rel(dt, dj) < (1e-6 if mixed else 1e-8)
     if mixed:
         assert len(out[1][1]) == 1
+
+
+# -- the closed form of Neo-Hooke on P1 tetrahedra ------------------------
+
+NH = (0.4, 0.6)
+
+
+def _p1_cube(perturbed, n=3):
+    """Domain.structured(3, n) on the CPU; `perturbed` moves every interior
+    point by up to 0.2 h in each coordinate (seeded)."""
+    dom = TDomain.structured(3, n, device="cpu")
+    if perturbed:
+        pts = dom.mesh.points
+        inner = np.all((pts > 1e-12) & (pts < 1 - 1e-12), axis=1)
+        jitter = np.random.default_rng(11).uniform(-0.2, 0.2, pts.shape) / n
+        pts[inner] += jitter[inner]
+    return dom
+
+
+def _displacements(vc, strain, seed=5):
+    """Nodal displacements d_a = (F_e − I) X_a + c_e, so that each element
+    has the deformation gradient F_e exactly: I plus `strain` times a
+    seeded normal matrix, rescaled ("finite") to a determinant drawn
+    uniformly from [0.7, 1.3]."""
+    rng = np.random.default_rng(seed)
+    E = vc.shape[0]
+    amp = 1e-3 if strain == "small" else 0.15
+    F = np.eye(3) + amp * rng.standard_normal((E, 3, 3))
+    if strain == "finite":
+        J = rng.uniform(0.7, 1.3, E)
+        J[:2] = 0.7, 1.3
+        F *= np.cbrt(J / np.linalg.det(F))[:, None, None]
+    X = vc.numpy()
+    d = np.einsum("eik,eak->eai", F - np.eye(3), X)
+    d += 0.01 * rng.standard_normal((E, 1, 3))
+    return torch.as_tensor(d), np.linalg.det(F)
+
+
+@pytest.mark.parametrize("strain", ["small", "finite"])
+@pytest.mark.parametrize("perturbed", [False, True],
+                         ids=["structured", "perturbed"])
+def test_neo_hooke_p1_closed_form_matches_autodiff_and_jax(perturbed,
+                                                           strain):
+    """The closed form that Neo-Hooke on 3D P1 elements takes (the plain
+    version of csrc/hyperelastic.cu on the CPU) against the port's
+    torch.func path and jax.grad / jax.hessian, within 1e-12 relative, at
+    small strains and at J from 0.7 to 1.3; its tangent is symmetric."""
+    dom = _p1_cube(perturbed)
+    vc = dom.vert_coords()
+    de, J = _displacements(vc, strain)
+    if strain == "finite":
+        assert J.min() <= 0.7 + 1e-9 and J.max() >= 1.3 - 1e-9
+    R, K = th.elem_hyper_residual_tangent(vc, de, 3, "P1", "Neo-Hooke", NH)
+    Ra, Ka = th.autodiff_residual_tangent(vc, de, 3, "P1", "Neo-Hooke", NH)
+    Rj, Kj = jh.elem_hyper_residual_tangent(jnp.asarray(vc.numpy()),
+                                            jnp.asarray(de.numpy()), 3, "P1",
+                                            "Neo-Hooke", NH)
+    assert R.shape == (dom.n_elements, 12) and K.shape == (dom.n_elements,
+                                                            12, 12)
+    assert _rel(R.numpy(), Ra.numpy()) < RTOL
+    assert _rel(K.numpy(), Ka.numpy()) < RTOL
+    assert _rel(R.numpy(), Rj) < RTOL
+    assert _rel(K.numpy(), Kj) < RTOL
+    assert _rel(K.numpy(), K.transpose(1, 2).numpy()) < 1e-14
+
+
+@pytest.mark.parametrize("material,dim,fe", [
+    ("Neo-Hooke", 3, "P1"), ("StVK", 3, "P1"), ("Mooney-Rivlin", 3, "P1"),
+    ("Neo-Hooke", 3, "P2"), ("Neo-Hooke", 2, "P1")])
+def test_residual_only_equals_full_call_bitwise(material, dim, fe):
+    """elem_hyper_residual_tangent(..., tangent=False) returns no tangent
+    and the full call's R bit for bit, on the closed form and on the
+    torch.func path (grad alone)."""
+    dom = TDomain.structured(dim, 2, fe_type=fe, device="cpu")
+    vc = dom.vert_coords()
+    de = torch.as_tensor(0.02 * np.random.default_rng(3).standard_normal(
+        (dom.n_elements, dom.n_basis(), dim)))
+    params = MATERIALS[material]
+    R, K = th.elem_hyper_residual_tangent(vc, de, dim, fe, material, params)
+    R1, K1 = th.elem_hyper_residual_tangent(vc, de, dim, fe, material,
+                                            params, tangent=False)
+    assert K1 is None and K is not None
+    assert torch.equal(R1, R)
+
+
+def test_neo_hooke_p1_inverted_element_is_non_finite():
+    """An element with J < 0 gives a non-finite R and K on the closed form,
+    as on the torch.func path (ln J), so Newton's line search backtracks;
+    the other elements keep their values."""
+    dom = _p1_cube(False, n=2)
+    vc = dom.vert_coords()
+    de, _ = _displacements(vc, "small")
+    X = vc[3].numpy()
+    de[3] = torch.as_tensor((np.diag([-1.5, 0.0, 0.0]) @ X.T).T)  # J = -0.5
+    for fn in (th.elem_hyper_residual_tangent, th.autodiff_residual_tangent):
+        R, K = fn(vc, de, 3, "P1", "Neo-Hooke", NH)
+        assert not torch.isfinite(R[3]).all()
+        assert not torch.isfinite(K[3]).all()
+        keep = torch.arange(dom.n_elements) != 3
+        assert torch.isfinite(R[keep]).all() and torch.isfinite(K[keep]).all()
+    R, _ = th.elem_hyper_residual_tangent(vc, de, 3, "P1", "Neo-Hooke", NH)
+    Ra, _ = th.autodiff_residual_tangent(vc, de, 3, "P1", "Neo-Hooke", NH)
+    assert _rel(R[keep].numpy(), Ra[keep].numpy()) < RTOL
+
+
+@pytest.mark.parametrize("material,dim,fe", [
+    ("Neo-Hooke", 3, "P1"), ("StVK", 3, "P1"), ("Mooney-Rivlin", 3, "P1"),
+    ("Neo-Hooke", 3, "P2"), ("Neo-Hooke", 2, "P1")])
+def test_hyper_path_counters(monkeypatch, material, dim, fe):
+    """hyper_elem_residual_tangent over a domain: Neo-Hooke on 3D P1 takes
+    the closed form in one evaluation (no `hyper.autodiff_chunks`; on the
+    CPU its plain version, so no `kernel.neo_hooke_p1` either), every
+    other case one torch.func evaluation a chunk of _AUTODIFF_CHUNK."""
+    from feddlib_tpu_torch.la import _cuda
+    from feddlib_tpu_torch.utils import timers
+
+    monkeypatch.setattr(th, "_AUTODIFF_CHUNK", 10)
+    dom = TDomain.structured(dim, 3, fe_type=fe, device="cpu")
+    d = torch.as_tensor(0.01 * np.random.default_rng(1).standard_normal(
+        dom.n_dofs(dim)))
+    timers.reset_counters("hyper.autodiff_chunks")
+    _cuda.reset_launch_counts()
+    Rf, Kf = tnl.hyper_elem_residual_tangent(dom, d, material,
+                                             MATERIALS[material])
+    nloc = dom.n_basis() * dim
+    assert Rf.shape == (dom.n_elements * nloc,)
+    assert Kf.shape == (dom.n_elements * nloc ** 2,)
+    chunks = timers.counters().get("hyper.autodiff_chunks", 0)
+    assert _cuda.launch_counts["neo_hooke_p1"] == 0
+    if material == "Neo-Hooke" and dim == 3 and fe == "P1":
+        assert chunks == 0
+    else:
+        assert chunks == -(-dom.n_elements // 10) > 1
+
+
+@pytest.mark.parametrize("dofs_per_node", [1, 3])
+def test_device_dofs_cached_equal_host_ids(dofs_per_node):
+    """Domain.device_dofs: the element dof ids (node ids for 1, NodeWise
+    vector_dof_ids for 3) as int64 on the device, built once and reused."""
+    from feddlib_tpu_torch.fe.assembly import vector_dof_ids
+
+    dom = TDomain.structured(3, 2, device="cpu")
+    ids = dom.device_dofs(dofs_per_node)
+    host = (dom.elem_nodes() if dofs_per_node == 1
+            else vector_dof_ids(dom.elem_nodes(), dofs_per_node))
+    assert ids.dtype == torch.int64 and ids.device.type == "cpu"
+    np.testing.assert_array_equal(ids.numpy(), host)
+    assert dom.device_dofs(dofs_per_node, "cpu") is ids
