@@ -68,8 +68,8 @@ exits non-zero):
      step's last linear solve reach 1e-8 in f64 on the host, B1, B2 and B3
      launch (each held against its plain version at this solve's shapes);
      per step the Newton count, the GMRES iterations and the seconds of
-     tangent / combined system and BCs / with_data / solve, and the
-     kernel launches (B6 every residual and tangent, no torch.func chunk);
+     tangent / residuals / solve (the program's spans), and the kernel
+     launches (B6 every residual and tangent, no torch.func chunk);
      B6, the Neo-Hooke P1 element kernel, over all 196,608 elements with
      and without the tangent, beside its byte bound, its plain version and
      the torch.func path, against the plain version on the card and on the
@@ -171,7 +171,7 @@ exits non-zero):
      against the CPU (1e-12) and dryrun_multichip(4) on stacked shards on
      the card and on the CPU: counts equal, the FSI tip within 1e-10.
      Phase 2 also prints the card's busy share of its repeated solve,
-     read from a timers.profile_trace trace;
+     reduced by the benchmark's profiler trace (benchmark/tracing.py);
  16. the native host library on the card machine's host, each function
      against its numpy version, bitwise, both timed: (a)
      SparsityPattern.from_coo on phase 2's COO (Domain.structured(3, 64),
@@ -180,8 +180,13 @@ exits non-zero):
      scenarios.write_channel_mesh), P1 and P2, (c) rcb of phase 2's
      274,625 points into its 512 clusters; one {"host_native": ...} line.
 
-Prints one `{"kernels": [...]}` JSON line, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.  Exits non-zero without
+Every set-up and per-step split of seconds is read from the program's own
+spans and counters (feddlib_tpu_torch/utils/timers.py, through `_measured`),
+every busy share from the benchmark's profiler reduction
+(benchmark/tracing.py), and B3's bound from the benchmark's unpadded byte
+count (benchmark/roofline.py).  Prints one `{"kernels": [...]}` JSON line,
+the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}.  Exits non-zero without
 a result when no CUDA device is visible or the package is missing.
 """
 
@@ -256,6 +261,97 @@ def _bound(n_bytes, n_ops, peak_ops):
 def _check(ok, msg):
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
+
+
+class _Registry:
+    """A subscriber of the program's registry
+    (feddlib_tpu_torch/utils/timers.py) while its `with` block runs: the
+    spans that closed, in the order they closed, and the counters'
+    increments."""
+
+    def __init__(self):
+        self.spans, self.counts = [], {}
+
+    def __enter__(self):
+        from feddlib_tpu_torch.utils import timers
+
+        timers.subscribe(self.file)
+        return self
+
+    def __exit__(self, *exc):
+        from feddlib_tpu_torch.utils import timers
+
+        timers.unsubscribe(self.file)
+
+    def file(self, rec):
+        if hasattr(rec, "end_ns"):
+            self.spans.append(rec)
+        else:
+            self.counts[rec.name] = self.counts.get(rec.name, 0) + rec.n
+
+    def each(self, name, lo=0, hi=None):
+        """Seconds of each span `name` that opened at `lo` or later and
+        closed by `hi` (time.perf_counter_ns() readings, the spans' clock)."""
+        return [sp.seconds for sp in self.spans if sp.name == name
+                and sp.start_ns >= lo and (hi is None or sp.end_ns <= hi)]
+
+    def s(self, *names, lo=0, hi=None):
+        """Seconds of the spans of these names, summed."""
+        return sum(sum(self.each(n, lo, hi)) for n in names)
+
+    def per(self, name, outer):
+        """For each span `outer`, in order, the seconds of the spans `name`
+        inside it, summed."""
+        return [self.s(name, lo=o.start_ns, hi=o.end_ns)
+                for o in self.spans if o.name == outer]
+
+    def parts(self, *names):
+        """The seconds of each name as "part=seconds ...", a name's part
+        being what follows its layer ("prec.gdsw" prints "gdsw=...")."""
+        return " ".join(f"{n.split('.', 1)[1]}={self.s(n):.3f}"
+                        for n in names)
+
+
+def _measured(fn, *a, **k):
+    """(fn(*a, **k), the _Registry of the call): the seconds of the
+    program's own spans and its counters' increments during the call."""
+    with _Registry() as reg:
+        return fn(*a, **k), reg
+
+
+def _traced(torch, dev, fn):
+    """(fn's result, benchmark.tracing.Trace) of one call of fn under the
+    profiler, after one call outside it: the card's busy seconds, the
+    window's and each kernel's seconds and launches (copies included)."""
+    from benchmark.tracing import Trace
+
+    fn()
+    tr = Trace(dev)
+    tr.start()
+    out = fn()
+    tr.stop()
+    return out, tr
+
+
+def _launches(torch, dev, fn):
+    """(launches, busy ms) of one call of fn on the card, from `_traced`;
+    (None, None) where the trace shows no device events."""
+    _, tr = _traced(torch, dev, fn)
+    n = sum(v[1] for v in tr.kernels.values())
+    return (n, tr.busy_s * 1e3) if n else (None, None)
+
+
+def _b3_bound(db):
+    """B3's least ms for one launch on the layout `db`, counted from its
+    unpadded cluster blocks (`benchmark/roofline.py`, as `b3_roofline.*`
+    counts them), and what bounds it."""
+    from benchmark import roofline as rf
+
+    rows, cols = rf.unpadded_blocks(db.old_of_pad.cpu().numpy(),
+                                    db.ghost_idx.cpu().numpy(), db.n, db.R)
+    by = ("bytes" if rf.b3_bytes(rows, cols) / rf.PEAK_BYTES_S
+          >= rf.b3_flops(rows, cols) / rf.PEAK_F32_S else "operations")
+    return rf.b3_least_s(rows, cols) * 1e3, by
 
 
 def _laplace(torch, n, clusters, device):
@@ -423,7 +519,7 @@ def _phase7(torch, np, args, dev):
     torch.cuda.synchronize()
     t_setup = time.perf_counter()
     _cuda.reset_launch_counts()
-    iters = prob.solve()
+    iters, reg = _measured(prob.solve)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t_setup
     u = prob.solution[0]
@@ -445,10 +541,10 @@ def _phase7(torch, np, args, dev):
     print(f"f64 default path: gmres_iters={iters} relres="
           f"{prob.last_relres:.3e} host_f64_relres={rel:.3e} "
           f"assembly_s={t_setup - t0:.3f} solve_s={t_solve:.3f} (setup "
-          f"inside: {prec.timings['level1_s']:.3f} level 1 = "
-          f"{l1.timings['overlap_s']:.3f} overlap + "
-          f"{l1.timings['factor_s']:.3f} host inverses and upload, "
-          f"{prec.timings['gdsw_s']:.3f} GDSW) launches="
+          f"inside: {reg.s('prec.level1'):.3f} level 1 = "
+          f"{reg.s('prec.overlap'):.3f} overlap + "
+          f"{reg.s('prec.factor'):.3f} host inverses and upload, "
+          f"{reg.s('prec.gdsw'):.3f} GDSW) launches="
           f"{dict(_cuda.launch_counts)}", flush=True)
     _check(rel <= 1e-8, f"f64 default path host residual {rel} > 1e-8")
     # phase 12 holds the distributed solve of this system against it
@@ -500,8 +596,9 @@ def _phase7(torch, np, args, dev):
     # f64 GMRES of LinearSolver.solve_system (tol 1e-8, restart 100)
     part = MeshPartition(prob.domains[0].mesh, args.schwarz_parts)
     t_s = time.perf_counter()
-    prec.level1 = SchwarzPreconditioner(
-        A, prob.preconditioner._merged_dof_map(part), solver="sparse")
+    prec.level1, reg = _measured(
+        SchwarzPreconditioner, A, prob.preconditioner._merged_dof_map(part),
+        solver="sparse")
     M_fn, M_ops = prec.operator()
     torch.cuda.synchronize()
     t_s2 = time.perf_counter()
@@ -526,7 +623,7 @@ def _phase7(torch, np, args, dev):
           f"nnz_factors={slu.nnz_factors} plane_bytes={slu.nbytes()} "
           f"gmres_iters={iters_s} (dense {iters}) host_f64_relres="
           f"{rel_s:.3e} setup_s={t_s2 - t_s:.3f} (of which "
-          f"{prec.level1.timings['factor_s']:.3f} sparse LU and level "
+          f"{reg.s('prec.factor'):.3f} sparse LU and level "
           f"planes) gmres_s={t_solve_s:.3f} "
           f"sparse_lu_apply_ms={slu_ms:.5f} (device) "
           f"sparse_lu_apply_wall_ms={slu_wall:.5f} (host clock) against "
@@ -576,11 +673,6 @@ def _phase8(torch, np, args, dev, hold_b123):
     """The 3D cavity with Newton and mixed precision (see the module
     docstring)."""
     from feddlib_tpu_torch.la import _cuda
-    from feddlib_tpu_torch.la.block import BlockMatrix
-    from feddlib_tpu_torch.la.dense_blocks import (DenseBlockSchwarz,
-                                                   DenseBlockSpMV)
-    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
-    from feddlib_tpu_torch.solvers import refinement
     from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
 
     t0 = time.perf_counter()
@@ -590,50 +682,17 @@ def _phase8(torch, np, args, dev, hold_b123):
         "Clusters": args.ns_clusters, "Convergence Tolerance": 1e-8}, dev)
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0
-    # per-step seconds: wrap the problem's hooks, the merge, the three
-    # parts rebuilt every step (BlockMatrix.merge makes a new pattern, so
-    # the mixed solve's cache never hits): the dof-map clusters
-    # (DenseBlockSpMV.from_csr, rebalancing included), the padded SELL
-    # layout and the level-1 factor; and the refinement (the solve proper)
-    spent = {k: [] for k in ("assembly", "merge", "clusters", "sell",
-                             "factor", "setup_other", "solve")}
+    # each Newton step's seconds from the program's spans: the assembly,
+    # the merge and the three parts rebuilt every step (BlockMatrix.merge
+    # makes a new pattern, so the mixed solve's cache never hits): the
+    # dof-map clusters and the padded SELL layout (`mixed.partition`,
+    # `mixed.layout`, rebalancing included), the level-1 factor
+    # (`prec.level1`), and the refinement (the solve proper)
     last = {}
-
-    def timed(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[key].append(time.perf_counter() - t)
-            return out
-        return run
-
-    patched = [(BlockMatrix, "merge", "merge"),
-               (refinement, "iterative_refinement", "solve"),
-               (DenseBlockSchwarz, "__init__", "factor"),
-               (PaddedSplitSpMV, "__init__", "sell")]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
-    for obj, name, key in patched:
-        setattr(obj, name, timed(key, getattr(obj, name)))
-    from_csr = DenseBlockSpMV.from_csr  # bound to the class
-    DenseBlockSpMV.from_csr = classmethod(
-        lambda cls, *a, **k: timed("clusters", from_csr)(*a, **k))
-    saved.append((DenseBlockSpMV, "from_csr", from_csr.__func__))
-    reassemble, residual = prob.reassemble, prob.calculate_residual
     solve_system = prob.linear_solver.solve_system
-    prob.reassemble = timed("assembly", reassemble)
-    prob.calculate_residual = timed("assembly", residual)
 
     def solve_and_keep(problem, b):
-        inside = ("merge", "clusters", "sell", "factor", "solve")
-        n0 = {k: len(spent[k]) for k in inside}
-        t = time.perf_counter()
         x, its = solve_system(problem, b)
-        torch.cuda.synchronize()
-        spent["setup_other"].append(
-            time.perf_counter() - t
-            - sum(sum(spent[k][n0[k]:]) for k in inside))
         last.update(b=b, x=x)
         return x, its
 
@@ -641,11 +700,7 @@ def _phase8(torch, np, args, dev, hold_b123):
     _cuda.reset_launch_counts()
     solver = NonLinearSolver("Newton")
     t1 = time.perf_counter()
-    try:
-        its = solver.solve(prob)
-    finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, classmethod(fn) if name == "from_csr" else fn)
+    its, reg = _measured(solver.solve, prob)
     torch.cuda.synchronize()
     t_newton = time.perf_counter() - t1
     counts = dict(_cuda.launch_counts)
@@ -662,6 +717,15 @@ def _phase8(torch, np, args, dev, hold_b123):
           f"{solver.final_criterion:.3e} gmres_per_step={solver.linear_iters}"
           f" last_linear_host_f64_relres={rel:.3e} assembly_s={t_asm:.3f} "
           f"newton_s={t_newton:.3f}")
+    spent = {k: reg.per(n, "newton.linear_solve") for k, n in (
+        ("merge", "block.merge"), ("partition", "mixed.partition"),
+        ("layout", "mixed.layout"), ("factor", "prec.level1"),
+        ("solve", "refinement.pass"))}
+    spent["setup_other"] = [
+        t - sum(v[i] for v in spent.values()) for i, t in
+        enumerate(reg.each("newton.linear_solve"))]
+    spent["tangent"] = reg.each("newton.tangent")
+    spent["residuals"] = reg.per("newton.residual", "newton.solve")
     for k, v in spent.items():
         print(f"cavity seconds per step, {k}: "
               f"{[round(x, 3) for x in v]}", flush=True)
@@ -814,8 +878,6 @@ def _phase9(torch, np, args, dev, hold_b123, entry=None):
     from feddlib_tpu_torch.fe import hyperelastic as th
     from feddlib_tpu_torch.la import _cuda
     from feddlib_tpu_torch.la.block import BlockVector
-    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
-    from feddlib_tpu_torch.solvers import linear, refinement
     from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
     from feddlib_tpu_torch.solvers.timestepping import (DAESolverInTime,
                                                         TimeProblem)
@@ -833,29 +895,10 @@ def _phase9(torch, np, args, dev, hold_b123, entry=None):
                           rhs_func=lambda t: BlockVector([f * (t / t_end)]))
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0
-    # per-step seconds: wrap the tangent reassembly, the combined system
-    # and its BCs, with_data (the mixed cache's refresh), the padded
-    # operators' rebuilds and the refinement (the solve proper)
-    spent = {k: [] for k in ("tangent", "combined_bcs", "with_data",
-                             "solve")}
-    steps, last, rebuilds = [], {}, [0]
-
-    def timed(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[key].append(time.perf_counter() - t)
-            return out
-        return run
-
-    def counted(fn):
-        def run(*a, **k):
-            rebuilds[0] += 1
-            return fn(*a, **k)
-        return run
-
+    # each step's seconds from the program's spans: its Newton solve, the
+    # tangent reassemblies, the residuals and the mixed solves (the
+    # with_data refresh and the refinement)
+    steps, last = [], {}
     solve_system = prob.linear_solver.solve_system
 
     def solve_and_keep(problem, b):
@@ -866,14 +909,13 @@ def _phase9(torch, np, args, dev, hold_b123, entry=None):
     newton_solve = NonLinearSolver.solve
 
     def newton_and_record(self, problem, t=0.0):
-        n0 = {k: len(v) for k, v in spent.items()}
-        t1 = time.perf_counter()
-        its = newton_solve(self, problem, t)
-        torch.cuda.synchronize()
+        its, reg = _measured(newton_solve, self, problem, t)
         st = {"t": t, "newton": its, "gmres": list(self.linear_iters),
               "criterion": self.final_criterion,
-              "seconds": time.perf_counter() - t1,
-              **{k: sum(v[n0[k]:]) for k, v in spent.items()}}
+              **{k: reg.s(n) for k, n in (
+                  ("seconds", "newton.solve"), ("tangent", "newton.tangent"),
+                  ("residual", "newton.residual"),
+                  ("solve", "solve.mixed"))}}
         # the host check rebuilds the step's system: not in its seconds
         A_sp = problem.bc_system().get_block(0, 0).to_scipy()
         st["host_relres"] = _host_relres(np, A_sp, last["b"].concat(),
@@ -881,30 +923,16 @@ def _phase9(torch, np, args, dev, hold_b123, entry=None):
         steps.append(st)
         return its
 
-    patched = [(NonLinearSolver, "solve", newton_and_record),
-               (PaddedSplitSpMV, "with_data",
-                timed("with_data", PaddedSplitSpMV.with_data)),
-               (refinement, "iterative_refinement",
-                timed("solve", refinement.iterative_refinement)),
-               (linear, "point_cluster_operators",
-                counted(linear.point_cluster_operators))]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
-    for obj, name, fn in patched:
-        setattr(obj, name, fn)
-    prob.reassemble = timed("tangent", prob.reassemble)
-    tp.combined_system = timed("combined_bcs", tp.combined_system)
-    prob.bc_builder.apply_to_system = timed(
-        "combined_bcs", prob.bc_builder.apply_to_system)
+    NonLinearSolver.solve = newton_and_record
     prob.linear_solver.solve_system = solve_and_keep
     _cuda.reset_launch_counts()
     timers.reset_counters("hyper.autodiff_chunks", "newton.iterations",
                           "newton.backtracks")
     t1 = time.perf_counter()
     try:
-        drv.advance_nonlinear_bdf(order=2)
+        _, loop = _measured(drv.advance_nonlinear_bdf, order=2)
     finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
+        NonLinearSolver.solve = newton_solve
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t1
     counts = dict(_cuda.launch_counts)
@@ -916,17 +944,19 @@ def _phase9(torch, np, args, dev, hold_b123, entry=None):
           f"P={db.P} R={db.R} G={db.G} W={db.R + db.G} E={split.Ac.E} "
           f"K={split.Ac.K} coarse_dim={prec.n_coarse} "
           f"assembly_s={t_asm:.3f} bdf2_loop_s={t_loop:.3f} "
-          f"setup_once={ {k: round(v, 3) for k, v in prec.timings.items()} }"
-          f" padded_operator_builds={rebuilds[0]} min_det_F={min_j:.4f} "
+          "setup_once: " + loop.parts("mixed.partition", "mixed.layout",
+                                      "prec.level1", "prec.gdsw",
+                                      "prec.coarse_layout")
+          + f" padded_operator_builds={len(loop.each('mixed.layout'))} "
+          f"min_det_F={min_j:.4f} "
           f"max_abs_d={float(d.abs().max()):.4f}")
     for i, st in enumerate(steps):
         print(f"hyperelastic step {i + 1}: t={st['t']} newton_its="
               f"{st['newton']} gmres_per_newton_step={st['gmres']} "
               f"criterion={st['criterion']:.3e} last_linear_host_f64_relres="
               f"{st['host_relres']:.3e} step_s={st['seconds']:.3f} "
-              f"(tangent {st['tangent']:.3f}, combined system and BCs "
-              f"{st['combined_bcs']:.3f}, with_data {st['with_data']:.3f}, "
-              f"solve {st['solve']:.3f})", flush=True)
+              f"(tangent {st['tangent']:.3f}, residuals "
+              f"{st['residual']:.3f}, solve {st['solve']:.3f})", flush=True)
     print(f"hyperelastic launches: {counts}", flush=True)
     _check(len(steps) == 3 and steps[0]["newton"] >= 3,
            f"Newton counts {[s['newton'] for s in steps]}")
@@ -1331,17 +1361,11 @@ def _phase11(torch, np, args, dev, hold_b123):
     """Serial FSI (see the module docstring): 11a the 3D GE loop on the
     mixed-precision path (B1-B3 on the four-field system), 11b the 2D GE
     step with FaCSI, 11c the 2D GI step with the shape derivatives."""
-    from feddlib_tpu_torch.fe import ops
     from feddlib_tpu_torch.fe import shape_derivatives as sd
     from feddlib_tpu_torch.fe.domain import Domain
     from feddlib_tpu_torch.la import _cuda
     from feddlib_tpu_torch.la.block import BlockMatrix
-    from feddlib_tpu_torch.la.dense_blocks import (DenseBlockSchwarz,
-                                                   DenseBlockSpMV)
-    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
     from feddlib_tpu_torch.mesh.partition import MeshPartition
-    from feddlib_tpu_torch.precond import facsi
-    from feddlib_tpu_torch.solvers import refinement
     from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
 
     t0 = time.perf_counter()
@@ -1382,23 +1406,16 @@ def _phase11(torch, np, args, dev, hold_b123):
     del A0
     prob.system = None
 
-    spent = {k: [] for k in ("geometry", "move_reassembly", "ale",
-                             "build_merge", "clusters", "sell", "factor",
-                             "with_data", "solve")}
-    builds, steps, last = [0], [], {}
-
-    def timed(key, fn):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[key].append(time.perf_counter() - t)
-            if key == "sell":
-                builds[0] += 1
-            return out
-        return run
-
+    # a time step's parts from the program's spans: the geometry solve
+    # before its Newton, the tangent reassemblies (each builds the
+    # system), the merges and the rebuilt clusters, SELL layout and level-1
+    # factor (BlockMatrix.merge makes a new pattern every Newton step), and
+    # the refinement (the solve proper)
+    parts = (("geometry", "fsi.geometry"), ("tangent", "newton.tangent"),
+             ("merge", "block.merge"), ("partition", "mixed.partition"),
+             ("layout", "mixed.layout"), ("factor", "prec.level1"),
+             ("solve", "refinement.pass"))
+    steps, last = [], {}
     merge = BlockMatrix.merge
 
     def merge_and_keep(self):
@@ -1414,22 +1431,23 @@ def _phase11(torch, np, args, dev, hold_b123):
         return x, its
 
     newton_solve = NonLinearSolver.solve
-    # a time step's parts: from the end of the previous step (the
-    # geometry solve, mesh move and ALE operator come before its Newton)
+    # a step runs from the end of the previous one (the geometry solve,
+    # mesh move and ALE operator come before its Newton)
     mark = {}
 
     def newton_and_record(self, problem, t=0.0):
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         its = newton_solve(self, problem, t)
         torch.cuda.synchronize()
-        now = time.perf_counter()
+        now = time.perf_counter_ns()
         st = {"t": t, "newton": its, "gmres": list(self.linear_iters),
-              "criterion": self.final_criterion, "newton_s": now - t1,
-              "seconds": now - mark["t"],
+              "criterion": self.final_criterion,
+              "newton_s": (now - t1) * 1e-9,
+              "seconds": (now - mark["t"]) * 1e-9,
               "geometry_its": problem.geometry.last_iters,
               "geometry_relres": problem.geometry.last_relres,
-              **{k: sum(v[mark.get(k, 0):]) for k, v in spent.items()}}
-        mark.update({k: len(v) for k, v in spent.items()}, t=now)
+              **{k: reg.s(n, lo=mark["t"], hi=now) for k, n in parts}}
+        mark["t"] = now
         # the host check is not in the step's seconds
         st["host_relres"] = _host_relres(np, last["A"].to_scipy(),
                                          last["b"].concat(),
@@ -1437,38 +1455,18 @@ def _phase11(torch, np, args, dev, hold_b123):
         steps.append(st)
         return its
 
-    patched = [(NonLinearSolver, "solve", newton_and_record),
-               (BlockMatrix, "merge", timed("build_merge", merge_and_keep)),
-               (ops, "assemble_ale_divergence",
-                timed("ale", ops.assemble_ale_divergence)),
-               (refinement, "iterative_refinement",
-                timed("solve", refinement.iterative_refinement)),
-               (DenseBlockSchwarz, "__init__",
-                timed("factor", DenseBlockSchwarz.__init__)),
-               (PaddedSplitSpMV, "__init__",
-                timed("sell", PaddedSplitSpMV.__init__)),
-               (PaddedSplitSpMV, "with_data",
-                timed("with_data", PaddedSplitSpMV.with_data))]
-    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
-    for obj, name, fn in patched:
-        setattr(obj, name, fn)
-    from_csr = DenseBlockSpMV.from_csr  # bound to the class
-    DenseBlockSpMV.from_csr = classmethod(
-        lambda cls, *a, **k: timed("clusters", from_csr)(*a, **k))
-    saved.append((DenseBlockSpMV, "from_csr", classmethod(from_csr.__func__)))
-    prob.geometry.solve_motion = timed("geometry", prob.geometry.solve_motion)
-    prob._assemble_fluid_constant = timed("move_reassembly",
-                                          prob._assemble_fluid_constant)
-    prob._build_system = timed("build_merge", prob._build_system)
+    NonLinearSolver.solve = newton_and_record
+    BlockMatrix.merge = merge_and_keep
     prob.linear_solver.solve_system = solve_and_keep
     _cuda.reset_launch_counts()
     t1 = time.perf_counter()
-    mark["t"] = t1
+    mark["t"] = time.perf_counter_ns()
     try:
-        prob.advance(t_end=0.04)
+        with _Registry() as reg:
+            prob.advance(t_end=0.04)
     finally:
-        for obj, name, fn in saved:
-            setattr(obj, name, fn)
+        NonLinearSolver.solve = newton_solve
+        BlockMatrix.merge = merge
     torch.cuda.synchronize()
     t_loop = time.perf_counter() - t1
     counts = dict(_cuda.launch_counts)
@@ -1477,7 +1475,8 @@ def _phase11(torch, np, args, dev, hold_b123):
     print(f"fsi 3D: P={db.P} R={db.R} G={db.G} W={db.R + db.G} "
           f"E={split.Ac.E} K={split.Ac.K} (host estimate [{P}, {R}, {W}]) "
           f"assembly_s={t_asm:.3f} ge_loop_s={t_loop:.3f} "
-          f"padded_operator_builds={builds[0]}", flush=True)
+          f"padded_operator_builds={len(reg.each('mixed.layout'))}",
+          flush=True)
     for i, st in enumerate(steps):
         print(f"fsi 3D step {i + 1}: newton_its={st['newton']} "
               f"gmres_per_newton_step={st['gmres']} criterion="
@@ -1486,7 +1485,7 @@ def _phase11(torch, np, args, dev, hold_b123):
               f"{st['geometry_its']} geometry_relres="
               f"{st['geometry_relres']:.3e} step_s={st['seconds']:.3f} "
               f"newton_s={st['newton_s']:.3f} (" + ", ".join(
-                  f"{k} {st[k]:.3f}" for k in spent) + ")", flush=True)
+                  f"{k} {st[k]:.3f}" for k, _ in parts) + ")", flush=True)
     print(f"fsi 3D launches: {counts}", flush=True)
     u, d = prob.solution[0], prob.solution[2]
     _check(len(steps) == 2, f"fsi time steps {len(steps)}")
@@ -1509,35 +1508,21 @@ def _phase11(torch, np, args, dev, hold_b123):
 
     # -- 11b: 2D two-box GE with FaCSI ---------------------------------------
     t1 = time.perf_counter()
-    built = []
-    init = facsi.FaCSIPreconditioner.__init__
-
-    def init_and_record(self, *a, **k):
-        init(self, *a, **k)
-        built.append(dict(self.timings, S_solid=self.solid_prec.S,
-                          S_fluid=self.fluid_prec.S))
-
-    facsi.FaCSIPreconditioner.__init__ = init_and_record
-    try:
-        small = []  # the small reference case, on the card then the CPU
-        for d_ in (dev, "cpu"):
-            p = _fsi_two_box(torch, 2, 4, {
-                "Preconditioner Type": "FaCSI", "Subdomains": 4,
-                "Maximum Iterations": 8000, "Convergence Tolerance": 1e-9},
-                d_)
-            p.advance(t_end=0.04)
-            small.append((p.nonlinear_solver.linear_iters,
-                          p.solution.concat().cpu()))
-        built.clear()
-        prob = _fsi_two_box(torch, 2, args.n_fsi2d, {
-            "Preconditioner Type": "FaCSI", "Subdomains": 32,
-            "Convergence Tolerance": 1e-8}, dev)
-        t2 = time.perf_counter()
-        prob.advance(t_end=0.02)
-        torch.cuda.synchronize()
-        t_step = time.perf_counter() - t2
-    finally:
-        facsi.FaCSIPreconditioner.__init__ = init
+    small = []  # the small reference case, on the card then the CPU
+    for d_ in (dev, "cpu"):
+        p = _fsi_two_box(torch, 2, 4, {
+            "Preconditioner Type": "FaCSI", "Subdomains": 4,
+            "Maximum Iterations": 8000, "Convergence Tolerance": 1e-9}, d_)
+        p.advance(t_end=0.04)
+        small.append((p.nonlinear_solver.linear_iters,
+                      p.solution.concat().cpu()))
+    prob = _fsi_two_box(torch, 2, args.n_fsi2d, {
+        "Preconditioner Type": "FaCSI", "Subdomains": 32,
+        "Convergence Tolerance": 1e-8}, dev)
+    t2 = time.perf_counter()
+    _, reg = _measured(prob.advance, t_end=0.02)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t2
     (its_card, x_card), (its_cpu, x_cpu) = small
     dsmall = float((x_card - x_cpu).abs().max() / x_cpu.abs().max())
     print(f"fsi 2D FaCSI small (n=4, 2 steps) card vs cpu: gmres "
@@ -1564,15 +1549,17 @@ def _phase11(torch, np, args, dev, hold_b123):
           f"newton_its={len(solver.linear_iters)} gmres_per_newton_step="
           f"{solver.linear_iters} criterion={solver.final_criterion:.3e} "
           f"last_relres={prob.last_relres:.3e} step_s={t_step:.3f}")
-    for i, b in enumerate(built):
-        print(f"fsi 2D FaCSI build {i + 1}: S solid {b['S_solid']}, fluid "
-              f"{b['S_fluid']}; seconds solid {b['solid']:.3f}, fluid "
-              f"{b['fluid']:.3f}")
+    S_solid, S_fluid = pre.solid_prec.S, pre.fluid_prec.S
+    for i, (so, fl) in enumerate(zip(reg.each("facsi.solid"),
+                                     reg.each("facsi.fluid"))):
+        print(f"fsi 2D FaCSI build {i + 1}: S solid {S_solid}, fluid "
+              f"{S_fluid}; seconds solid {so:.3f}, fluid {fl:.3f}")
     print(f"fsi 2D FaCSI apply: {apply_ms:.3f} ms (device) {wall_ms:.3f} ms "
           f"(wall); values_of_interest {voi}", flush=True)
     _check(solver.final_criterion <= 1e-6 and prob.last_relres <= 1e-8,
            "fsi 2D FaCSI Newton / GMRES")
-    _check(all(b["S_solid"] < 4096 and b["S_fluid"] < 4096 for b in built),
+    _check(S_solid < 4096 and S_fluid < 4096
+           and pre.solid_prec.solver == pre.fluid_prec.solver == "dense",
            "FaCSI subdomains take dense f64 inverses (S < 4096)")
     _check(all(np.isfinite(v) for v in voi.values()), "finite observables")
     del prob, pre, r
@@ -1655,26 +1642,6 @@ def _stacked_bytes(torch, *objs):
     return total
 
 
-def _launches(torch, fn):
-    """Kernel launches (and copies) on the card of one call of fn, read
-    from a torch.profiler trace; None where the trace shows no device
-    events (the profiler cannot see the card)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:  # no CUPTI on this machine
-        print(f"profiler unavailable: {e}")
-        return None
-    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    return n or None
-
-
 def _phase12(torch, np, args, dev, ref7):
     """The distributed solve, shards stacked on the card (see the module
     docstring)."""
@@ -1709,7 +1676,7 @@ def _phase12(torch, np, args, dev, ref7):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t1 = time.perf_counter()
-    iters = prob.solve()
+    iters, reg = _measured(prob.solve)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
     x = prob.solution[0].clone()
@@ -1718,19 +1685,18 @@ def _phase12(torch, np, args, dev, ref7):
     cache = prob._dist_cache
     dmat, solver = cache["dmat"], cache["solver"]
     build, arrs = cache["precond"]
-    tm, dt, sh = build.timings, dmat.timings, build.shape
-    setup_s = sum(cache["timings"].values())
+    sh = build.shape
+    setup_s = reg.s("dist.partition", "dist.matrix", "dist.precond")
     _check(x.device.type == "cuda" and dmat.ell_data.device.type == "cuda"
            and arrs[0].device.type == "cuda", "distributed solve on the card")
-    print(f"distributed setup s: partition={cache['timings']['partition_s']:.3f}"
-          f" DistributedCsr={cache['timings']['dmat_s']:.3f} (rows "
-          f"{dt['rows_s']:.3f}, HaloPlan {dt['plan_s']:.3f}, ELL "
-          f"{dt['ell_s']:.3f}) overlap_sets={tm['overlap_s']:.3f} "
-          f"overlap_HaloPlan={tm['ovplan_s']:.3f} "
-          f"blocks={tm['blocks_s']:.3f} inverses={tm['factor_s']:.3f} "
-          f"GDSW={tm['gdsw_s']:.3f} Phi={tm['phi_s']:.3f} "
-          f"coarse_inverse={tm['coarse_s']:.3f} total={setup_s:.3f}",
-          flush=True)
+    print(f"distributed setup s: {reg.parts('dist.partition')} "
+          f"matrix={reg.s('dist.matrix'):.3f} ("
+          + reg.parts("dist.rows", "dist.halo_plan", "dist.ell")
+          + f") precond={reg.s('dist.precond'):.3f} ("
+          + reg.parts("prec.overlap", "prec.overlap_plan", "prec.blocks",
+                      "prec.factor", "prec.gdsw", "prec.phi",
+                      "prec.coarse_solver")
+          + f") total={setup_s:.3f}", flush=True)
     cs, co = dmat.plan.comm_stats(), sh["comm"]
     l1_bytes = _stacked_bytes(torch, arrs[0])
     all_bytes = _stacked_bytes(torch, arrs, dmat.ell_data, dmat.ell_cols,
@@ -1807,15 +1773,15 @@ def _phase12(torch, np, args, dev, ref7):
         A_fn(xs)
     torch.cuda.synchronize()
     a_wall = (time.perf_counter() - tw) / 10 * 1e3
-    la, lm = _launches(torch, lambda: A_fn(xs)), _launches(torch,
-                                                           lambda: M_fn(xs))
+    la = _launches(torch, dev, lambda: A_fn(xs))[0]
+    lm = _launches(torch, dev, lambda: M_fn(xs))[0]
     print(f"distributed applies: A_ms={a_ms:.5f} (device) A_wall_ms="
           f"{a_wall:.5f} A_launches={la} M(A(x))_ms={ma_ms:.5f} (device) "
           f"M(A(x))_wall_ms={ma_wall:.5f} M_launches={lm}", flush=True)
     # phase 13a's reference: this solve and its split matrix, collected
     ref12 = {"n": args.n_dist, "parts": n_dev, "iters": iters, "x": u,
              "A": _collect_csr(np, dmat), "asm_s": t_asm,
-             "dmat_s": cache["timings"]["dmat_s"]}
+             "dmat_s": reg.s("dist.matrix")}
     del prob, A, cache, dmat, solver, build, arrs, A_fn, M_fn, xs
     gc.collect()
     torch.cuda.empty_cache()
@@ -1909,6 +1875,12 @@ def _pipe_bytes(torch, pipe):
         pipe.plan.export_arrays, fps)
 
 
+# the child spans of `pipe.finalize` (parallel/pipeline.py)
+PIPE_PARTS = tuple("pipe." + k for k in (
+    "keys", "patterns", "send", "rounds", "ell", "halo", "geometry",
+    "fields"))
+
+
 def _rounds(pipe):
     """(rounds, Σ W a shard, elements moved in all) of the exchange."""
     moved = sum(int((r != pipe.L).sum()) for r in pipe._xc_rdst)
@@ -1931,7 +1903,7 @@ def _phase13a(torch, np, args, dev, ref12):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     t1 = time.perf_counter()
-    iters = prob.solve()
+    iters, reg = _measured(prob.solve)
     torch.cuda.synchronize()
     t_first = time.perf_counter() - t1
     x = prob.solution[0].clone()
@@ -1941,17 +1913,15 @@ def _phase13a(torch, np, args, dev, ref12):
     pipe, solver = pc["pipe"], pp["solver"]
     dmat = solver.dmat
     build, arrs = pp["precond"]
-    tm, ft = build.timings, pipe.timings
     _check(x.device.type == "cuda" and dmat.ell_data.device.type == "cuda"
            and pipe.seg_ids.device.type == "cuda", "pipeline on the card")
-    print(f"pipeline setup s: partition={pc['timings']['partition_s']:.3f} "
-          f"finalize={pc['timings']['finalize_s']:.3f} ("
-          + " ".join(f"{k[:-2]} {v:.3f}" for k, v in ft.items())
-          + f") preconditioner={pp['precond_s']:.3f} (overlap_sets "
-          f"{tm['overlap_s']:.3f}, overlap_HaloPlan {tm['ovplan_s']:.3f}, "
-          f"blocks {tm['blocks_s']:.3f}, inverses {tm['factor_s']:.3f}, "
-          f"GDSW {tm['gdsw_s']:.3f}, Phi {tm['phi_s']:.3f}, coarse_inverse "
-          f"{tm['coarse_s']:.3f})", flush=True)
+    print(f"pipeline setup s: {reg.parts('pipe.partition')} "
+          f"finalize={reg.s('pipe.finalize'):.3f} ("
+          + reg.parts(*PIPE_PARTS)
+          + f") precond={reg.s('dist.precond'):.3f} ("
+          + reg.parts("prec.overlap", "prec.overlap_plan", "prec.blocks",
+                      "prec.factor", "prec.gdsw", "prec.phi",
+                      "prec.coarse_solver") + ")", flush=True)
     nr, pp_w, moved = _rounds(pipe)
     print(f"pipeline shapes: n_dofs={A_sp.shape[0]} shards={n_dev} L="
           f"{pipe.L} S={pipe.S} K={pipe.K} N_o={pipe.N_o} E_max="
@@ -1962,8 +1932,7 @@ def _phase13a(torch, np, args, dev, ref12):
           f"allocated_after_solve={torch.cuda.memory_allocated() - m0} "
           f"peak_in_first_solve={torch.cuda.max_memory_allocated() - m0}",
           flush=True)
-    setup_s = (pc["timings"]["partition_s"] + pc["timings"]["finalize_s"]
-               + pp["precond_s"])
+    setup_s = reg.s("pipe.partition", "pipe.finalize", "dist.precond")
     print(f"pipeline solve: gmres_iters={iters} relres={prob.last_relres:.3e}"
           f" host_f64_relres={rel:.3e} first_solve_s={t_first:.3f} (setup "
           f"{setup_s:.3f} inside) hopper_launches="
@@ -2008,7 +1977,7 @@ def _phase13a(torch, np, args, dev, ref12):
         pipe.assemble()
     torch.cuda.synchronize()
     asm_wall = (time.perf_counter() - tw) * 100.0
-    la = _launches(torch, lambda: pipe.assemble())
+    la = _launches(torch, dev, lambda: pipe.assemble())[0]
     ref_s = ("" if ref12 is None else
              f"; phase 12a host assembly {ref12['asm_s']:.3f} s + "
              f"DistributedCsr {ref12['dmat_s']:.3f} s")
@@ -2086,34 +2055,27 @@ def _phase13b(torch, np, args, dev):
 
 def _fsi_dist_run(torch, np, n, params, dev, gi):
     """Two GE steps (or one GI step) of the 2D two-box FSI: (Newton
-    count a step, GMRES a solve, solution, seconds, problem)."""
-    from feddlib_tpu_torch.solvers import linear as lin
+    count a step, GMRES a solve, solution, seconds, problem, the
+    _Registry of the loop)."""
+    per_step = []
+    prob = _fsi_two_box(torch, 2, n, dict(
+        {"Convergence Tolerance": 1e-10, "relNonLinTol": 1e-9,
+         "Maximum Iterations": 4000}, **params), dev)
+    t1 = time.perf_counter()
 
-    log, steps = [], []
-    orig = lin.LinearSolver.solve_system
+    def obs(t, s):  # the step's Newton solver: its GMRES count a solve
+        per_step.append(list(prob.nonlinear_solver.linear_iters))
 
-    def counted(self, problem, b):
-        x, it = orig(self, problem, b)
-        log.append(it)
-        return x, it
-
-    lin.LinearSolver.solve_system = counted
-    try:
-        prob = _fsi_two_box(torch, 2, n, dict(
-            {"Convergence Tolerance": 1e-10, "relNonLinTol": 1e-9,
-             "Maximum Iterations": 4000}, **params), dev)
-        t1 = time.perf_counter()
-        obs = lambda t, s: steps.append(len(log))  # noqa: E731
+    with _Registry() as reg:
         if gi:
             prob.advance_gi(t_end=0.02, observer=obs)
         else:
             prob.advance(t_end=0.04, observer=obs)
-        _sync(torch, torch.device(dev))
-        secs = time.perf_counter() - t1
-    finally:
-        lin.LinearSolver.solve_system = orig
-    return ([int(v) for v in np.diff([0] + steps)], log,
-            [b.cpu().numpy() for b in prob.solution.blocks], secs, prob)
+    _sync(torch, torch.device(dev))
+    secs = time.perf_counter() - t1
+    return ([len(g) for g in per_step], [i for g in per_step for i in g],
+            [b.cpu().numpy() for b in prob.solution.blocks], secs, prob,
+            reg)
 
 
 def _fsi_compare(np, name, ser, dist):
@@ -2140,7 +2102,7 @@ def _phase13cd(torch, np, args, dev):
         "Preconditioner Type": "FaCSI",
         "Subdomains": args.pipe_fsi_devices}, dev, gi=False)[:4]
     d = _fsi_dist_run(torch, np, args.n_pipe_fsi, dist, dev, gi=False)
-    prob = d[4]
+    prob, reg = d[4], d[5]
     cache = prob._pipe_ge
     pipe = cache["pipe"]
     build = cache["prec"][0]
@@ -2158,9 +2120,11 @@ def _phase13cd(torch, np, args, dev):
     print(f"fsi distributed GE: n={args.n_pipe_fsi} n_dofs={sum(sizes)} "
           f"shards={pipe.n_dev} (solid {args.pipe_fsi_solid}) pipeline "
           f"L={pipe.L} S={pipe.S} K={pipe.K} N_o={pipe.N_o} rounds "
-          f"{_rounds(pipe)}; finalize {cache['finalize_s']:.3f} s, built "
-          f"{cache['builds']} time(s); FaCSI build {build.timings} S "
-          f"{build.shape['S']}, refresh s {[round(v, 3) for v in cache['prec_s']]}"
+          f"{_rounds(pipe)}; pipeline {reg.s('fsi.pipeline'):.3f} s, built "
+          f"{cache['builds']} time(s); FaCSI build "
+          + reg.parts("facsi.solid", "facsi.fluid", "facsi.interface")
+          + f" S {build.shape['S']}, set-up and refreshes s "
+          f"{[round(v, 3) for v in reg.each('facsi.setup')]}"
           f"; apply {apply_ms:.3f} ms (device) {wall_ms:.3f} ms (wall); "
           f"n_distributes={pipe.n_distributes} "
           f"({pipe.n_distributes / sum(d[0]):.2f} a Newton step)",
@@ -2168,7 +2132,7 @@ def _phase13cd(torch, np, args, dev):
     _check(cache["builds"] == 1, "one pipeline and FaCSI build for 2 steps")
     _fsi_compare(np, "fsi distributed GE vs serial FaCSI", ser, d[:4])
     ref = {"ge": d[:3]}
-    del d, prob, cache, pipe, build, M, r
+    del d, prob, cache, pipe, build, M, r, reg
     gc.collect()
     torch.cuda.empty_cache()
     _phase("13c fsi distributed GE", t0)
@@ -2196,8 +2160,8 @@ def _phase13cd(torch, np, args, dev):
     print(f"fsi distributed GI: n={args.n_fsi_gi} n_dofs="
           f"{sum(d[4].block_sizes())} shards={pipe.n_dev} pipeline L="
           f"{pipe.L} S={pipe.S} K={pipe.K} N_o={pipe.N_o} E_max={pipe.E_max}"
-          f" (the shape blocks differentiated in the assembly); finalize "
-          f"{cache['finalize_s']:.3f} s; one assembly {gi_ms:.3f} ms "
+          f" (the shape blocks differentiated in the assembly); pipeline "
+          f"{d[5].s('fsi.pipeline'):.3f} s; one assembly {gi_ms:.3f} ms "
           f"(device) peak_bytes={peak}", flush=True)
     del ext, x, cache
     _fsi_compare(np, "fsi distributed GI vs serial", ser, d[:4])
@@ -2262,6 +2226,7 @@ def _pipe_cases(torch, np):
         NonLinElasticity
     from feddlib_tpu_torch.problems.tpm import TPM
     from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+    from feddlib_tpu_torch.utils import timers
     from feddlib_tpu_torch.utils.config import ParameterList
 
     pipe_opts = {"Use Distributed Solve": True, "Devices": 4,
@@ -2284,9 +2249,16 @@ def _pipe_cases(torch, np):
         pr.add_bc(lambda x, t: [0.0, 0.0], 1, 0)
         pr.add_bc(lambda x, t: 0.0, 3, 1)
         pr.assemble_source(lambda x: [0.0, -1.0])
-        its, solve = [], pr.solve
-        pr.solve = lambda: its.append(solve()) or its[-1]
-        pr.advance(t_end=0.1, f_ext=pr.rhs.copy())
+        # each step's Krylov iterations: the registry's counter between
+        # two calls of the observer
+        its, seen = [], [timers.counters().get("krylov.iterations", 0)]
+
+        def step_its(t, sol):
+            now = timers.counters().get("krylov.iterations", 0)
+            its.append(now - seen[0])
+            seen[0] = now
+
+        pr.advance(t_end=0.1, f_ext=pr.rhs.copy(), observer=step_its)
         return its, pr.solution.concat().cpu().numpy()
 
     def hyper(d):
@@ -2365,54 +2337,6 @@ def _phase13(torch, np, args, dev, ref12):
     return ref13
 
 
-def _trace(torch, fn):
-    """(launches, busy ms) of one call of fn from a torch.profiler trace:
-    the kernels and copies on the card and the sum of their durations;
-    (None, None) where the trace shows no device events.  Every rank of a
-    program calls it alike (fn runs twice)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ev:
-        return None, None
-    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
-
-
-def _busy_share(torch, fn, log_dir):
-    """(fn's result, busy ms, wall ms, device events) of one call of fn
-    under `timers.profile_trace`: busy is the union of the card's kernel
-    and copy intervals, wall the call's span under the profiler."""
-    from torch.autograd import DeviceType
-
-    from feddlib_tpu_torch.utils import timers
-
-    torch.cuda.synchronize()
-    with timers.profile_trace(log_dir) as prof:
-        with timers.timer("solve"):
-            t = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    timers.reset()
-    return res, busy / 1e3, wall, len(spans)
-
-
 def _sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -2426,6 +2350,21 @@ def _wall_ms(torch, dev, fn, calls=10):
         fn()
     _sync(torch, dev)
     return (time.perf_counter() - t) / calls * 1e3
+
+
+def _xfer(reg):
+    """A rank's cross-rank traffic in `reg` (parallel/spmd.py): the
+    counters `axis.xfer_bytes` (sent) and `axis.xfer_calls`, and the
+    seconds of the `axis.xfer` spans (host clock)."""
+    return {"bytes": reg.counts.get("axis.xfer_bytes", 0),
+            "calls": reg.counts.get("axis.xfer_calls", 0),
+            "seconds": reg.s("axis.xfer")}
+
+
+def _setup(tm):
+    """A pipeline solve's set-up seconds: partition, finalize, the
+    preconditioner."""
+    return tm["pipe.partition"] + tm["pipe.finalize"] + tm["dist.precond"]
 
 
 def _phase14a_rank(n, n_dev, device_type="cuda"):
@@ -2453,18 +2392,16 @@ def _phase14a_rank(n, n_dev, device_type="cuda"):
         m0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
-    iters = prob.solve()
+    iters, reg = _measured(prob.solve)
     _sync(torch, dev)
     t_solve = time.perf_counter() - t1
     pc, pp = prob._pipe_cache, prob._pipe_prec
     pipe, solver = pc["pipe"], pp["solver"]
     axis = pipe.axis
-    x_solve = dict(axis.xfer)
-    build = pp["precond"][0]
-    tm = dict(pc["timings"], **{f"finalize.{k}": v
-                                for k, v in pipe.timings.items()})
-    tm.update(precond_s=pp["precond_s"],
-              **{f"precond.{k}": v for k, v in build.timings.items()})
+    x_solve = _xfer(reg)
+    tm = {n: reg.s(n) for n in ("pipe.partition", "pipe.finalize")
+          + PIPE_PARTS + ("dist.precond", "prec.level1", "prec.gdsw",
+                          "prec.phi", "prec.coarse_solver")}
     x = prob.solution[0].cpu().numpy()
     dmat = solver.dmat
     ell = dmat.ell_host()  # gathered once during the setup
@@ -2482,11 +2419,10 @@ def _phase14a_rank(n, n_dev, device_type="cuda"):
                     ("M(A(x))", lambda: M_fn(A_fn(xs))),
                     ("assembly", lambda: pipe.assemble())):
         wall = _wall_ms(torch, dev, fn)
-        axis.reset_xfer()
-        fn()
+        one = _xfer(_measured(fn)[1])
         _sync(torch, dev)
-        one = dict(axis.xfer)
-        la, busy = _trace(torch, fn) if on_card else (None, None)
+        la, busy = (_launches(torch, dev, fn) if on_card
+                    else (None, None))
         out[key] = {"wall_ms": wall, "launches": la, "busy_ms": busy,
                     "xfer_bytes": one["bytes"], "xfer_s": one["seconds"],
                     "xfer_calls": one["calls"]}
@@ -2545,7 +2481,8 @@ def _phase14a(torch, np, args, dev, ref13):
         same = bool(np.array_equal(r0["ell"], ref13["ell"]))
         print(f"two ranks vs phase 13a: gmres {r0['iters']} vs "
               f"{ref13['iters']}, max|dx|/max|x|={dx:.3e}, matrix bitwise "
-              f"equal={same}; setup {max(r['setup']['precond_s'] + r['setup']['finalize_s'] + r['setup']['partition_s'] for r in ranks):.3f} s "
+              f"equal={same}; setup "
+              f"{max(_setup(r['setup']) for r in ranks):.3f} s "
               f"vs 13a's {ref13['setup_s']:.3f}; assembly wall "
               f"{max(r['applies']['assembly']['wall_ms'] for r in ranks):.5f}"
               f" ms vs 13a's {ref13['asm_wall_ms']:.5f}", flush=True)
@@ -2679,9 +2616,9 @@ def _phase14c(torch, np, args, dev, hold_b123):
     maps = [m for m in _SQUARE_MAPS
             if _mesh_key(np, mesh0, (m,)) == k0]
     for mode, opts in modes:
-        per = []
+        per, reg, mark = [], _Registry(), [0]
 
-        def cb(c, prob, rec, mode=mode, per=per):
+        def cb(c, prob, rec, mode=mode, per=per, reg=reg, mark=mark):
             counts = dict(_cuda.launch_counts)
             shape = ""
             if mode == "mixed":
@@ -2691,13 +2628,13 @@ def _phase14c(torch, np, args, dev, hold_b123):
                          f"{ca['sell'].Ac.vals.shape[0]} chunks B1 "
                          f"{db.ghost_plan[0].numel()} outputs")
                 kept[mode] = (ca, counts)
-            else:  # the solve's share of plan rebuilds and setup
-                pc, pp = prob._pipe_cache, prob._pipe_prec
-                shape = (f" (solve: partition "
-                         f"{pc['timings']['partition_s']:.3f} finalize "
-                         f"{pc['timings']['finalize_s']:.3f} preconditioner "
-                         f"{pp['precond_s']:.3f}, level-1 width "
+            else:  # the cycle's plan rebuilds and set-up
+                pp = prob._pipe_prec
+                parts = [f"{n} {reg.s(n, lo=mark[0]):.3f}" for n in (
+                    "pipe.partition", "pipe.finalize", "dist.precond")]
+                shape = (f" (solve: {', '.join(parts)}, level-1 width "
                          f"{pp['precond'][0].shape['S']})")
+            mark[0] = time.perf_counter_ns()
             launches = {k: counts.get(k, 0) for k in keys}
             launches["mesh"] = _mesh_key(np, prob.domains[0].mesh, maps)
             per.append(launches)
@@ -2711,10 +2648,12 @@ def _phase14c(torch, np, args, dev, hold_b123):
 
         _cuda.reset_launch_counts()
         t1 = time.perf_counter()
-        h = adaptive_solve_cycles(
-            build_structured_mesh(2, args.n_amr), f_t, cycles=args.amr_cycles,
-            theta=0.6, params=ParameterList("P", dict(base, **opts)),
-            source_np=f_np, device=dev, callback=cb)
+        with reg:
+            h = adaptive_solve_cycles(
+                build_structured_mesh(2, args.n_amr), f_t,
+                cycles=args.amr_cycles, theta=0.6,
+                params=ParameterList("P", dict(base, **opts)),
+                source_np=f_np, device=dev, callback=cb)
         _sync(torch, dev)
         hist[mode] = (h, per, time.perf_counter() - t1)
         print(f"AMR {mode}: {hist[mode][2]:.3f} s for {args.amr_cycles} "
@@ -2791,13 +2730,14 @@ def _phase15a_rank(runs, device_type="cuda"):
     out = {}
     for mode, n, n_dev, solid in runs:
         gi = mode == "GI"
-        steps, log, sol, secs, prob = _fsi_dist_run(
+        steps, log, sol, secs, prob, reg = _fsi_dist_run(
             torch, np, n, {"Use Distributed Solve": True, "Devices": n_dev,
                            "Solid Devices": solid}, dev, gi=gi)
         cache = prob._pipe_gi if gi else prob._pipe_ge
         pipe = cache["pipe"]
         axis = pipe.axis
-        loop_xfer = dict(axis.xfer)
+        loop_xfer = _xfer(reg)
+        facsi_s = reg.each("facsi.setup")
         x = pipe.distribute(prob.solution.concat())
         if gi:
             ext = {"w": pipe.distribute_field(0, prob.solution[0] * 0.0),
@@ -2814,29 +2754,28 @@ def _phase15a_rank(runs, device_type="cuda"):
                             x=x, ext_fields=ext, vert_coords=vc)),
                         ("FaCSI apply", lambda: M(r))):
             wall = _wall_ms(torch, dev, fn, calls=5)
-            axis.reset_xfer()
-            fn()
+            one = _xfer(_measured(fn)[1])
             _sync(torch, dev)
-            one = dict(axis.xfer)
-            la, busy = _trace(torch, fn) if on_card else (None, None)
+            la, busy = (_launches(torch, dev, fn) if on_card
+                        else (None, None))
             applies[key] = {"wall_ms": wall, "launches": la,
                             "busy_ms": busy, "xfer_bytes": one["bytes"],
                             "xfer_s": one["seconds"],
                             "xfer_calls": one["calls"]}
         res = {"rank": axis.rank, "lo": axis.lo, "hi": axis.hi,
                "backend": axis.backend, "steps": steps, "log": log,
-               "loop_s": secs, "finalize_s": cache["finalize_s"],
-               "facsi_s": list(cache["prec_s"]), "loop_xfer": loop_xfer,
+               "loop_s": secs, "pipeline_s": reg.s("fsi.pipeline"),
+               "facsi_s": facsi_s, "loop_xfer": loop_xfer,
                "applies": applies, "n_local": axis.n_local, "N_o": pipe.N_o}
         if axis.rank == 0:
             res["sol"] = sol
         out[mode] = res
         print(f"rank {axis.rank} {mode} shards [{axis.lo}, {axis.hi}) on "
               f"{dev} ({axis.backend}): Newton {steps} GMRES {log} loop "
-              f"{secs:.3f} s finalize {cache['finalize_s']:.3f} s FaCSI "
-              f"{[round(v, 3) for v in cache['prec_s']]} s; cross-rank in "
-              f"the loop {loop_xfer}", flush=True)
-        del prob, cache, pipe, x, ext, vc, M, r
+              f"{secs:.3f} s pipeline {res['pipeline_s']:.3f} s FaCSI "
+              f"{[round(v, 3) for v in facsi_s]} s; cross-rank in the loop "
+              f"{loop_xfer}", flush=True)
+        del prob, cache, pipe, x, ext, vc, M, r, reg
     return out
 
 
@@ -2857,8 +2796,8 @@ def _phase15a(torch, np, args, dev, ref):
         for r in rr:
             print(f"fsi on two ranks {mode}: rank {r['rank']} [{r['lo']}, "
                   f"{r['hi']}) n_local={r['n_local']} N_o={r['N_o']} "
-                  f"setup_s={r['finalize_s'] + r['facsi_s'][0]:.3f} "
-                  f"(finalize {r['finalize_s']:.3f} + FaCSI build "
+                  f"setup_s={r['pipeline_s'] + r['facsi_s'][0]:.3f} "
+                  f"(pipeline {r['pipeline_s']:.3f} + FaCSI build "
                   f"{r['facsi_s'][0]:.3f}) loop_s={r['loop_s']:.3f} "
                   f"loop_cross_rank_bytes={r['loop_xfer']['bytes']} "
                   f"loop_cross_rank_s={r['loop_xfer']['seconds']:.3f}",
@@ -3077,41 +3016,6 @@ def _phase15(torch, np, args, dev, ref13):
     _phase15b(torch, np, args, dev)
     _phase15c(torch, np, args, dev)
     _phase("15 fsi on ranks, drivers, entry points", t0)
-
-
-class _TimedFromCoo:
-    """Within the block, SparsityPattern.from_coo adds its calls, seconds
-    and entries to `stats` (the symbolic phase of an assembly)."""
-
-    def __init__(self):
-        from feddlib_tpu_torch.la.csr import SparsityPattern
-
-        self.cls = SparsityPattern
-        self.orig = SparsityPattern.__dict__["from_coo"]
-        self.stats = {"calls": 0, "seconds": 0.0, "entries": 0,
-                      "largest_entries": 0, "largest_seconds": 0.0}
-
-    def __enter__(self):
-        orig, stats = self.orig, self.stats
-
-        def timed(cls, rows, cols, n_rows, n_cols):
-            t = time.perf_counter()
-            out = orig.__func__(cls, rows, cols, n_rows, n_cols)
-            dt = time.perf_counter() - t
-            n = len(out.coo_slots)
-            stats["calls"] += 1
-            stats["seconds"] += dt
-            stats["entries"] += n
-            if n > stats["largest_entries"]:
-                stats["largest_entries"], stats["largest_seconds"] = n, dt
-            return out
-
-        self.cls.from_coo = classmethod(timed)
-        return self.stats
-
-    def __exit__(self, *exc):
-        self.cls.from_coo = self.orig
-        return False
 
 
 def _phase2_coo(np, mesh, fast):
@@ -3426,7 +3330,7 @@ def main(argv=None):
     _cuda.reset_launch_counts()
     prob = _laplace(torch, args.n, args.clusters, dev)
     t_setup = time.perf_counter()
-    iters = prob.solve()
+    iters, reg2 = _measured(prob.solve)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t_setup
     counts2 = dict(_cuda.launch_counts)
@@ -3442,25 +3346,27 @@ def main(argv=None):
     db, split, prec = cache["db32"], cache["sell"], cache["prec"]
     mesh2 = prob.variables[0][0].mesh  # host arrays, for phase 16
     # the same solve again with the built preconditioner: the refinement
-    # and inner GMRES time alone, under timers.profile_trace (the trace is
-    # kept in chiprun_out/phase2_trace) for the card's busy share
-    iters_again, busy_ms, prof_ms, n_ev = _busy_share(
-        torch, prob.solve, os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "chiprun_out", "phase2_trace"))
-    t_ir = prof_ms / 1e3
+    # and inner GMRES time alone, under the benchmark's profiler reduction
+    # (benchmark/tracing.py) for the card's busy share
+    iters_again, tr = _traced(torch, dev, prob.solve)
+    t_ir = tr.window_s
     _check(abs(iters_again - iters) <= 2, "repeated solve iterations")
-    print(f"main path: the repeated solve under the profiler: {n_ev} "
-          f"device events, busy {busy_ms:.3f} ms (union of kernels and "
-          f"copies) of {prof_ms:.3f} ms wall = {busy_ms / prof_ms:.4f} "
-          f"busy", flush=True)
+    print(f"main path: the repeated solve under the profiler: "
+          f"{sum(v[1] for v in tr.kernels.values())} device events, busy "
+          f"{tr.busy_s * 1e3:.3f} ms (union of kernels and copies) of "
+          f"{tr.window_s * 1e3:.3f} ms wall = "
+          f"{tr.busy_s / tr.window_s:.4f} busy; idle gaps "
+          f"{[[n, round(v, 4)] for n, v in tr.breakdown['idle_gaps'][:4]]}",
+          flush=True)
     print(f"main path: n_dofs={A_sp.shape[0]} nnz={A_sp.nnz} P={db.P} "
           f"R={db.R} G={db.G} W={db.R + db.G} E={split.Ac.E} "
           f"K={split.Ac.K} coarse_dim={prec.n_coarse}")
     print(f"main path: ir_passes={prob.last_passes} inner_iters={iters} "
           f"relres={prob.last_relres:.3e} host_f64_relres={rel_host:.3e} "
           f"setup_s={t_setup - t0:.3f} solve_s={t_solve:.3f} "
-          f"ir_s={t_ir:.3f} (under the profiler) "
-          f"prec_timings={ {k: round(v, 3) for k, v in prec.timings.items()} }")
+          f"ir_s={t_ir:.3f} (under the profiler) set-up s "
+          + reg2.parts("mixed.partition", "mixed.layout", "prec.level1",
+                       "prec.gdsw", "gdsw.extend", "prec.coarse_layout"))
     print(f"main path launches: {counts2} "
           f"(per inner iteration: "
           f"{ {k: round(v / max(iters, 1), 2) for k, v in counts2.items()} })",
@@ -3624,8 +3530,7 @@ def main(argv=None):
               err, _device_ms(torch, lambda: dk.dense_block_mv(inv, xs)),
               _device_ms(torch, lambda: dk.dense_block_mv_plain(inv, xs),
                          samples=20, calls=2),
-              _bound(4 * P * R * W + 4 * P * W + 4 * P * R, 2 * P * R * W,
-                     PEAK_F32_S),
+              _b3_bound(db),
               _device_ms(torch, lambda: torch.bmm(inv, xs.unsqueeze(-1))))
 
     # the least time of any launch under _device_ms: an empty one-block
@@ -3749,17 +3654,17 @@ def main(argv=None):
 
     dom = Domain.structured(3, args.n_elas, device=dev).p2_domain()
     t_mesh = time.perf_counter() - t0
-    with _TimedFromCoo() as sym5:
+    with _Registry() as sym5:
         prob = _linelas(torch, dom, {}, dev)
         A = prob.bc_system().get_block(0, 0)
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0 - t_mesh
-    print(f"elasticity operator symbolic phase (native from_coo): "
-          f"{sym5['calls']} calls, {sym5['seconds']:.3f} s over "
-          f"{sym5['entries']} COO entries; the largest, {sym5['largest_entries']} "
-          f"entries, {sym5['largest_seconds']:.3f} s", flush=True)
+    pats = sym5.each("fe.pattern")
+    print(f"elasticity operator symbolic phase (the patterns built: COO "
+          f"and native from_coo): {len(pats)} patterns, {sum(pats):.3f} s; "
+          f"the largest {max(pats, default=0.0):.3f} s", flush=True)
     t_fmt = time.perf_counter()
-    F = auto_spmv(A, dtype=torch.float32, dofs_per_node=3)
+    F, reg = _measured(auto_spmv, A, dtype=torch.float32, dofs_per_node=3)
     torch.cuda.synchronize()
     t_fmt = time.perf_counter() - t_fmt
     _check(isinstance(F, SplitDiaMatrix), f"format is {type(F).__name__}")
@@ -3775,7 +3680,8 @@ def main(argv=None):
           f"bytes_per_apply={F.hbm_bytes_per_apply()}")
     print(f"elasticity operator setup_s: mesh={t_mesh:.3f} "
           f"assembly_and_bc={t_asm:.3f} auto_spmv={t_fmt:.3f} of which "
-          f"{ {k: round(v, 3) for k, v in F.timings.items()} }", flush=True)
+          + reg.parts("split.rcm", "split.permute", "split.dia_layout",
+                      "split.sell_layout", "split.gathers"), flush=True)
     A_sp = A.to_scipy()
     fn5, ops5 = F.operator()
     x5 = torch.randn(A.shape[0], generator=g, device=dev)
@@ -3922,7 +3828,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     t_setup = time.perf_counter()
     _cuda.reset_launch_counts()
-    iters = prob.solve()
+    iters, reg6 = _measured(prob.solve)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t_setup
     counts6 = dict(_cuda.launch_counts)
@@ -3941,7 +3847,9 @@ def main(argv=None):
     print(f"elasticity solve: ir_passes={prob.last_passes} inner_iters="
           f"{iters} relres={prob.last_relres:.3e} host_f64_relres="
           f"{rel6:.3e} setup_s={t_setup - t0:.3f} solve_s={t_solve:.3f} "
-          f"prec_timings={ {k: round(v, 3) for k, v in prec.timings.items()} }")
+          "set-up s " + reg6.parts(
+              "mixed.partition", "mixed.layout", "prec.level1", "prec.gdsw",
+              "gdsw.extend", "prec.coarse_layout"))
     print(f"elasticity solve launches: {counts6} (per inner iteration: "
           f"{ {k: round(v / max(iters, 1), 2) for k, v in counts6.items()} })",
           flush=True)

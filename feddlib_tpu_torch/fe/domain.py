@@ -18,6 +18,7 @@ from feddlib_tpu_torch.mesh.io import read_mesh
 from feddlib_tpu_torch.mesh.mesh import Mesh
 from feddlib_tpu_torch.mesh.p2 import build_p2_mesh
 from feddlib_tpu_torch.mesh.structured import build_structured_mesh
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
 
 
@@ -172,9 +173,14 @@ class Domain:
 
     # -- pattern cache ------------------------------------------------------
     def pattern(self, key, build):
+        """The sparsity pattern cached under `key`; a miss calls `build()`
+        (the symbolic phase of an assembly: its COO and the native
+        `SparsityPattern.from_coo`) inside the synchronised span
+        `fe.pattern` (utils/timers.py)."""
         pat = self._patterns.get(key)
         if pat is None:
-            pat = build()
+            with timers.timer("fe.pattern", sync=True):
+                pat = build()
             self._patterns[key] = pat
         return pat
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from feddlib_tpu_torch.la.csr import CsrMatrix, SparsityPattern
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
 
 
@@ -136,9 +137,14 @@ class BlockMatrix:
 
     def merge(self) -> CsrMatrix:
         """Flatten to one monolithic CSR with global block offsets.
-        Memoized until a block changes."""
-        if self._merged is not None:
-            return self._merged
+        Memoized until a block changes; a build is the synchronised span
+        `block.merge` (utils/timers.py)."""
+        if self._merged is None:
+            with timers.timer("block.merge", sync=True):
+                self._merged = self._merge()
+        return self._merged
+
+    def _merge(self) -> CsrMatrix:
         row_off = np.concatenate([[0], np.cumsum(self.row_sizes)])
         col_off = np.concatenate([[0], np.cumsum(self.col_sizes)])
         n_rows, n_cols = int(row_off[-1]), int(col_off[-1])
@@ -153,7 +159,6 @@ class BlockMatrix:
                                        np.concatenate(cols_l), n_rows, n_cols)
         out = CsrMatrix(pat, device=items[0][1].device)
         out.assemble(torch.cat(vals_l))
-        self._merged = out
         return out
 
     def __repr__(self):

@@ -32,6 +32,7 @@ import torch
 
 from feddlib_tpu_torch.la.permute import PermutationGather, permute_op
 from feddlib_tpu_torch.la.sell import BlockSellMatrix, SellMatrix, sell_op
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
 
 
@@ -349,7 +350,10 @@ class SplitDiaMatrix:
     The operator lives in RCM-PERMUTED (and, for d > 1, PLANAR [d, nn])
     space; `operator()` wraps it with one PermutationGather each way
     (interleaved NodeWise in/out — drop-in for the Krylov paths),
-    `permuted_operator()` exposes the raw form for whole-loop use."""
+    `permuted_operator()` exposes the raw form for whole-loop use.
+    `from_csr` opens the synchronised spans (utils/timers.py) `split.rcm`,
+    `split.permute`, `split.dia_layout`, `split.sell_layout` and
+    `split.gathers`, one a part of the host set-up."""
 
     def __init__(self, dia_part, sell_part, d, nn, node_perm, sel_dia,
                  sel_res, nnz, dtype, gin, gout):
@@ -368,74 +372,65 @@ class SplitDiaMatrix:
         self.gin = gin               # PermutationGather in/out plans
         self.gout = gout
         self.device = dia_part.device
-        self.timings = {}            # host setup seconds by part (from_csr)
 
     @classmethod
     def from_csr(cls, A, dtype=torch.float32, dofs_per_node: int = 1,
                  min_occupancy: float = 0.15, max_offsets: int = 96,
                  min_dia_share: float = 0.25, device="cuda"):
-        import time
-
         import scipy.sparse as sps
         from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-        t0 = time.perf_counter()
-        timings = {}
+        with timers.timer("split.rcm", sync=True):
+            sp, dev, _ = _host_csr(A, device)
+            n = sp.shape[0]
+            d = int(dofs_per_node)
+            if sp.shape[0] != sp.shape[1] or n == 0 or n % max(d, 1):
+                return None
+            nn = n // d
+            data_np = np.asarray(sp.data)
 
-        def lap(name):
-            nonlocal t0
-            t1 = time.perf_counter()
-            timings[name] = timings.get(name, 0.0) + t1 - t0
-            t0 = t1
+            # node-graph RCM (symmetric pattern)
+            if d > 1:
+                row = np.repeat(np.arange(n, dtype=np.int64),
+                                np.diff(sp.indptr))
+                ng = sps.csr_matrix(
+                    (np.ones(sp.nnz, np.int8), (row // d, sp.indices // d)),
+                    shape=(nn, nn))
+            else:
+                ng = sp
+            node_perm = np.asarray(
+                reverse_cuthill_mckee(ng.tocsr(), symmetric_mode=True),
+                dtype=np.int64)
+            dof_perm = ((node_perm[:, None] * d
+                         + np.arange(d)[None, :]).reshape(-1) if d > 1
+                        else node_perm)
 
-        sp, dev, _ = _host_csr(A, device)
-        n = sp.shape[0]
-        d = int(dofs_per_node)
-        if sp.shape[0] != sp.shape[1] or n == 0 or n % max(d, 1):
-            return None
-        nn = n // d
-        data_np = np.asarray(sp.data)
+        with timers.timer("split.permute", sync=True):
+            # permute WITH original-position tracking (with_data plans)
+            pos = sp.copy()
+            pos.data = np.arange(sp.nnz, dtype=np.int64) + 1
+            pos_p = pos[dof_perm][:, dof_perm].tocsr()
+            pos_p.sort_indices()
+            opos = pos_p.data - 1
+            rowp = np.repeat(np.arange(n, dtype=np.int64),
+                             np.diff(pos_p.indptr))
+            colp = pos_p.indices.astype(np.int64)
 
-        # node-graph RCM (symmetric pattern)
-        if d > 1:
-            row = np.repeat(np.arange(n, dtype=np.int64), np.diff(sp.indptr))
-            ng = sps.csr_matrix(
-                (np.ones(sp.nnz, np.int8), (row // d, sp.indices // d)),
-                shape=(nn, nn))
-        else:
-            ng = sp
-        node_perm = np.asarray(
-            reverse_cuthill_mckee(ng.tocsr(), symmetric_mode=True),
-            dtype=np.int64)
-        dof_perm = ((node_perm[:, None] * d
-                     + np.arange(d)[None, :]).reshape(-1) if d > 1
-                    else node_perm)
-        lap("rcm")
-
-        # permute WITH original-position tracking (with_data plans)
-        pos = sp.copy()
-        pos.data = np.arange(sp.nnz, dtype=np.int64) + 1
-        pos_p = pos[dof_perm][:, dof_perm].tocsr()
-        pos_p.sort_indices()
-        opos = pos_p.data - 1
-        rowp = np.repeat(np.arange(n, dtype=np.int64), np.diff(pos_p.indptr))
-        colp = pos_p.indices.astype(np.int64)
-
-        # node-offset occupancy → kept diagonals
-        noff = colp // d - rowp // d
-        uoff, inv, counts = np.unique(noff, return_inverse=True,
-                                      return_counts=True)
-        inv = inv.ravel()
-        slots = np.maximum(nn - np.abs(uoff), 1) * d * d
-        occ = counts / slots
-        cand = np.flatnonzero(occ >= min_occupancy)
-        if len(cand) > max_offsets:
-            cand = cand[np.argsort(-occ[cand], kind="stable")[:max_offsets]]
-        keep = np.zeros(len(uoff), np.bool_)
-        keep[cand] = True
-        in_dia = keep[inv]
-        covered = int(in_dia.sum())
-        lap("permute")
+            # node-offset occupancy → kept diagonals
+            noff = colp // d - rowp // d
+            uoff, inv, counts = np.unique(noff, return_inverse=True,
+                                          return_counts=True)
+            inv = inv.ravel()
+            slots = np.maximum(nn - np.abs(uoff), 1) * d * d
+            occ = counts / slots
+            cand = np.flatnonzero(occ >= min_occupancy)
+            if len(cand) > max_offsets:
+                cand = cand[np.argsort(-occ[cand],
+                                       kind="stable")[:max_offsets]]
+            keep = np.zeros(len(uoff), np.bool_)
+            keep[cand] = True
+            in_dia = keep[inv]
+            covered = int(in_dia.sum())
         if covered < min_dia_share * sp.nnz:
             return None  # not diagonal-concentrated even under RCM
 
@@ -448,51 +443,51 @@ class SplitDiaMatrix:
             return (sps.csr_matrix((data_np[o[srt]], (r[srt], c[srt])),
                                    shape=(n, n)), o[srt])
 
-        sub_dia, sel_dia = _sub(in_dia)
-        if d > 1:
-            dia_part = BlockDiaMatrix.from_csr(
-                sub_dia, d, dtype=dtype, max_offsets=len(cand) + 1,
-                coverage=0.0, max_bytes_per_nnz=1e12, device=dev)
-        else:
-            dia_part = DiaMatrix.from_csr(
-                sub_dia, dtype=dtype, max_offsets=len(cand) + 1,
-                coverage=0.0, max_bytes_per_nnz=1e12, device=dev)
-        if dia_part is None:
-            return None
-        if dia_part.spill_rows is not None:
-            return None  # by construction the sub is pure-diagonal
-        lap("dia_layout")
+        with timers.timer("split.dia_layout", sync=True):
+            sub_dia, sel_dia = _sub(in_dia)
+            if d > 1:
+                dia_part = BlockDiaMatrix.from_csr(
+                    sub_dia, d, dtype=dtype, max_offsets=len(cand) + 1,
+                    coverage=0.0, max_bytes_per_nnz=1e12, device=dev)
+            else:
+                dia_part = DiaMatrix.from_csr(
+                    sub_dia, dtype=dtype, max_offsets=len(cand) + 1,
+                    coverage=0.0, max_bytes_per_nnz=1e12, device=dev)
+            if dia_part is None:
+                return None
+            if dia_part.spill_rows is not None:
+                return None  # by construction the sub is pure-diagonal
 
-        if int((~in_dia).sum()):
-            sub_res, sel_res = _sub(~in_dia)
-            sell_part = (BlockSellMatrix.from_csr(sub_res, d, dtype=dtype,
-                                                  device=dev)
-                         if d > 1 else
-                         SellMatrix.from_csr(sub_res, dtype=dtype,
-                                             device=dev))
-            if sell_part is None and d > 1:
-                # partial blocks in the residue: planar-indexed scalar SELL
-                m = ~in_dia
-                r_pl = (rowp[m] % d) * nn + rowp[m] // d
-                c_pl = (colp[m] % d) * nn + colp[m] // d
-                order = np.lexsort((c_pl, r_pl))
-                sub_pl = sps.csr_matrix(
-                    (data_np[opos[m]][order], (r_pl[order], c_pl[order])),
-                    shape=(n, n))
-                sell_part = SellMatrix.from_csr(sub_pl, dtype=dtype,
-                                                device=dev)
-                sel_res = opos[m][order]
-        else:
-            sell_part = None
-            sel_res = np.zeros(0, np.int64)
+        with timers.timer("split.sell_layout", sync=True):
+            if int((~in_dia).sum()):
+                sub_res, sel_res = _sub(~in_dia)
+                sell_part = (BlockSellMatrix.from_csr(sub_res, d,
+                                                      dtype=dtype,
+                                                      device=dev)
+                             if d > 1 else
+                             SellMatrix.from_csr(sub_res, dtype=dtype,
+                                                 device=dev))
+                if sell_part is None and d > 1:
+                    # partial blocks in the residue: planar-indexed scalar
+                    # SELL
+                    m = ~in_dia
+                    r_pl = (rowp[m] % d) * nn + rowp[m] // d
+                    c_pl = (colp[m] % d) * nn + colp[m] // d
+                    order = np.lexsort((c_pl, r_pl))
+                    sub_pl = sps.csr_matrix(
+                        (data_np[opos[m]][order],
+                         (r_pl[order], c_pl[order])), shape=(n, n))
+                    sell_part = SellMatrix.from_csr(sub_pl, dtype=dtype,
+                                                    device=dev)
+                    sel_res = opos[m][order]
+            else:
+                sell_part = None
+                sel_res = np.zeros(0, np.int64)
 
-        lap("sell_layout")
-        gin, gout = split_gathers(node_perm, d, dev)
-        lap("gathers")
-        out = cls(dia_part, sell_part, d, nn, node_perm, sel_dia,
-                  sel_res, sp.nnz, dtype, gin, gout)
-        out.timings = timings
-        return out
+        with timers.timer("split.gathers", sync=True):
+            gin, gout = split_gathers(node_perm, d, dev)
+        return cls(dia_part, sell_part, d, nn, node_perm, sel_dia,
+                   sel_res, sp.nnz, dtype, gin, gout)
 
     @property
     def dia_share(self) -> float:
@@ -516,7 +511,6 @@ class SplitDiaMatrix:
                              self.nnz, self.dtype, self.gin, self.gout)
         out._sel_dia_dev = self._sel_dia_dev
         out._sel_res_dev = self._sel_res_dev
-        out.timings = self.timings
         return out
 
     def _part_ops(self):

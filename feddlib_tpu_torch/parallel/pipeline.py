@@ -37,7 +37,6 @@ JAX package's values entry for entry (stored int64 where it stores int32).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -53,6 +52,7 @@ from feddlib_tpu_torch.parallel.spmd import (DeviceAxis, DistributedCsr,
                                              HaloPlan, _col_local_ids,
                                              _pad_stack, lane_index,
                                              local_lanes)
+from feddlib_tpu_torch.utils import timers
 
 f64 = torch.float64
 
@@ -412,7 +412,6 @@ class DistributedPipeline:
         self._final = False
         self._prog = None
         self.dim = part.mesh.dim
-        self.timings: Dict[str, float] = {}
 
     # -- mesh bookkeeping ----------------------------------------------------
     def _mesh_part(self, m: int) -> Tuple[MeshPartition, int, int]:
@@ -520,239 +519,240 @@ class DistributedPipeline:
     def finalize(self, axis: Optional[DeviceAxis] = None) -> None:
         """Build every plan on the host and upload the axis' rank's rows
         (every shard without ranks; the default axis is
-        `multihost.global_device_axis`).  `self.timings` holds the seconds of
-        each part."""
+        `multihost.global_device_axis`), in the synchronised span
+        `pipe.finalize` (utils/timers.py) with a child span a part:
+        `pipe.keys`, `pipe.patterns`, `pipe.send`, `pipe.rounds`,
+        `pipe.ell`, `pipe.halo`, `pipe.geometry`, `pipe.fields`."""
         if self._final:
             return
-        tm = self.timings
-        t0 = time.perf_counter()
-        n_dev = self.n_dev
-        owner = self.dof_map.owner_of()
-        n_total = self.dof_map.n_global
-        if axis is None:
-            from feddlib_tpu_torch.parallel import multihost
-
-            axis = multihost.global_device_axis(n_dev, self._device_arg)
-        self.axis = axis
-        if self.axis.n_dev != n_dev:
-            raise ValueError("device axis size != the pipeline's shards")
-        dev = self.device = self.axis.device
-        ix = self.axis.ix  # this rank's rows of a stacked host plan
-        n_mesh = self._n_meshes()
-
-        # ------- global symbolic COO (integers only) ------------------------
-        keys_per_block = []
-        for blk in self.blocks:
-            E, nr = blk.row_dofs.shape
-            nc = blk.col_dofs.shape[1]
-            keys_per_block.append(
-                (blk.row_dofs.astype(np.int64)[:, :, None] * n_total
-                 + blk.col_dofs[:, None, :]).reshape(E, nr * nc))
-        coo_keys = (np.concatenate([cb.keys for cb in self.coo_blocks])
-                    if self.coo_blocks else np.zeros(0, np.int64))
-        coo_vals = (np.concatenate([cb.vals for cb in self.coo_blocks])
-                    if self.coo_blocks else np.zeros(0))
-        t1 = time.perf_counter()
-        tm["keys_s"] = t1 - t0
-
-        # ------- per-shard owned-row patterns --------------------------------
-        # pattern of shard p = the sorted unique (row, col) keys over ALL
-        # shards' contributions whose row p owns (+ the coupling keys): one
-        # global unique, then a stable split by owner — the JAX package's
-        # per-shard np.unique(all_keys[key_owner == p]), entry for entry
-        uk = np.unique(np.concatenate([k.reshape(-1) for k in keys_per_block]
-                                      + [coo_keys]))
-        uo = owner[uk // n_total]
-        order = np.argsort(uo, kind="stable")
-        cuts = np.searchsorted(uo[order], np.arange(n_dev + 1))
-        uk = uk[order]
-        loc_patterns = [uk[cuts[p]:cuts[p + 1]] for p in range(n_dev)]
-        del uk, uo, order
-        self.L = max(max((len(k) for k in loc_patterns), default=0), 1)
-
-        # constant coupling values per shard (owner-contributed; no
-        # exchange): const_vals [n_dev, L]
-        cdense = np.zeros((n_dev, self.L))
-        if len(coo_keys):
-            co = owner[coo_keys // n_total]
-            for p in np.unique(co):
-                sel = co == p
-                slots = np.searchsorted(loc_patterns[p], coo_keys[sel])
-                np.add.at(cdense[p], slots, coo_vals[sel])
-        self.const_vals = self.axis.put(cdense)
-        t2 = time.perf_counter()
-        tm["patterns_s"] = t2 - t1
-
-        # ------- send plans: shard q's contributions to remote rows ---------
-        E_max_m = []
-        for m in range(n_mesh):
-            mp, _, _ = self._mesh_part(m)
-            E_max_m.append(int(mp.element_map.local_sizes.max()))
-        self.E_max_m = E_max_m
-        self.E_max = E_max_m[0]
-        send_keys: List[np.ndarray] = []
-        seg_l: List[np.ndarray] = []
-        for q in range(n_dev):
-            mine_l = []
-            for blk, k in zip(self.blocks, keys_per_block):
-                eids = self._eids(q, blk.mesh)
-                if len(eids):
-                    mine_l.append(k[eids].reshape(-1))
-            mine = (np.concatenate(mine_l) if mine_l
-                    else np.zeros(0, np.int64))
-            remote = owner[mine // n_total] != q
-            sk = np.unique(mine[remote])
-            send_keys.append(sk)
-            # segment target per raw contribution: local slot or L + slot
-            seg = np.searchsorted(loc_patterns[q], mine)
-            seg[remote] = self.L + np.searchsorted(sk, mine[remote])
-            seg_l.append(seg)
-        self.S = max(max((len(s) for s in send_keys), default=0), 1)
-        dump = self.L + self.S
-
-        # stacked seg plans [n_dev, Σ_b E_max(mesh_b)·w_b], blocks in
-        # element-major order per block; pad elements (beyond E_q) scatter
-        # into the dump slot L + S
-        plan_len = sum(E_max_m[blk.mesh] * k.shape[1]
-                       for blk, k in zip(self.blocks, keys_per_block))
-        seg_stacked = np.full((n_dev, max(plan_len, 1)), dump, np.int64)
-        for q in range(n_dev):
-            pos = spos = 0
-            for blk, keys in zip(self.blocks, keys_per_block):
-                w = keys.shape[1]
-                Eq = len(self._eids(q, blk.mesh))
-                seg_stacked[q, pos: pos + Eq * w] = \
-                    seg_l[q][spos: spos + Eq * w]
-                pos += E_max_m[blk.mesh] * w
-                spos += Eq * w
-        del seg_l, keys_per_block
-        self.seg_ids = ix(seg_stacked)
-        del seg_stacked
-        self._seg_plan = stacked_segment_plan(self.seg_ids, dump + 1, dev)
-        t3 = time.perf_counter()
-        tm["send_s"] = t3 - t2
-
-        # ------- contribution exchange: neighbour-wise ppermute rounds ------
-        meta, sidx, rdst = _exchange_rounds(
-            send_keys, lambda sk: owner[sk // n_total],
-            lambda p, sk: np.searchsorted(loc_patterns[p], sk),
-            n_dev, self.L)
-        self._xc_meta = meta
-        self._xc_sidx = [ix(a) for a in sidx]
-        self._xc_rdst = [ix(a) for a in rdst]
-        self._xc_src = [self.axis.perm_source(perm) for perm, _ in meta]
-        self._xc_plan = (stacked_segment_plan(torch.cat(self._xc_rdst, 1),
-                                              self.L + 1, dev)
-                         if meta else None)
-        del send_keys
-        t4 = time.perf_counter()
-        tm["rounds_s"] = t4 - t3
-
-        # ------- ELL layout + halo plan --------------------------------------
-        N_o = self.dof_map.max_local_size
-        self.N_o = N_o
-        col_gids: List[np.ndarray] = []
-        csr_meta = []
-        K = 1
-        for p in range(n_dev):
-            owned = self.dof_map.partition_indices[p]
-            keys = loc_patterns[p]
-            rows = keys // n_total
-            cols = keys % n_total
-            ghosts = np.setdiff1d(cols, owned)
-            col_gids.append(np.concatenate([owned, ghosts]))
-            # owned-local row index per slot (keys sorted ⇒ rows ascending;
-            # owned rows may have no slots)
-            r_loc = np.searchsorted(owned, rows)
-            lens = np.bincount(r_loc, minlength=len(owned))
-            K = max(K, int(lens.max()) if len(lens) else 1)
-            csr_meta.append((r_loc, _col_local_ids(owned, ghosts, cols, N_o),
-                             lens))
-        self.K = K
-        self.row_lens = np.zeros((n_dev, N_o), dtype=np.int64)
-        ell_cols = np.zeros((n_dev, K, N_o), dtype=np.int64)
-        ell_src = np.full((n_dev, K, N_o), self.L, dtype=np.int64)  # → zero
-        for p in range(n_dev):
-            r_loc, c_loc, lens = csr_meta[p]
-            self.row_lens[p, : len(lens)] = lens
-            starts = np.concatenate([[0], np.cumsum(lens)])
-            kk = np.arange(len(r_loc)) - starts[r_loc]
-            ell_cols[p, kk, r_loc] = c_loc
-            ell_src[p, kk, r_loc] = np.arange(len(r_loc))
-        del csr_meta, loc_patterns
-        self.ell_cols_host = ell_cols
-        self.ell_src_host = ell_src
-        self.ell_cols = ix(ell_cols)
-        self.ell_src = ix(ell_src)
-        # plan-static Dirichlet diagonal: the owned diagonal entry of each
-        # row where the row holds one
-        self._diag = self.axis.put(
-            (ell_cols == np.arange(N_o)[None, None, :]) & (ell_src != self.L))
-        self.col_gids = col_gids
-        t5 = time.perf_counter()
-        tm["ell_s"] = t5 - t4
-        self.plan = HaloPlan(self.dof_map, col_gids, axis=self.axis)
-        t6 = time.perf_counter()
-        tm["halo_s"] = t6 - t5
-
-        # ------- geometry (per mesh) + per-element data + field plans -------
-        self.mesh_vc = []
-        self.mesh_valid = []
-        for m in range(n_mesh):
-            mp, _, _ = self._mesh_part(m)
-            self.mesh_vc.append(self.mesh_vert_coords(m, mp.mesh.points))
-            valid = np.zeros((n_dev, E_max_m[m]))
-            for q in range(n_dev):
-                valid[q, : len(self._eids(q, m))] = 1.0
-            self.mesh_valid.append(self.axis.put(valid))
-        self.vert_coords = self.mesh_vc[0]
-        self.valid = self.mesh_valid[0]
-
-        # reference-configuration coordinates for geom="ref" blocks (the GI
-        # shape derivatives differentiate around the REFERENCE mesh)
-        self._ref_meshes = sorted({blk.mesh for blk in self.blocks
-                                   if blk.geom == "ref"})
-        self.mesh_vc_ref = {}
-        for m in self._ref_meshes:
-            msh = self._mesh_part(m)[0].mesh
-            pts = (msh.ref_points
-                   if getattr(msh, "ref_points", None) is not None
-                   else msh.points)
-            self.mesh_vc_ref[m] = self.mesh_vert_coords(m, pts)
-
-        # per-block row weights [n_dev, E_max, nr]
-        self.row_wts = {}
-        for bi, rw in self.row_weight_defs.items():
-            blk = self.blocks[bi]
-            wt_e = rw[blk.row_dofs - self.offsets[blk.i]]  # [E, nr]
-            out = np.zeros((n_dev, E_max_m[blk.mesh], wt_e.shape[1]))
-            for q in range(n_dev):
-                eids = self._eids(q, blk.mesh)
-                out[q, : len(eids)] = wt_e[eids]
-            self.row_wts[bi] = self.axis.put(out)
-
-        # per-element static data ("elem_data" param) per block
-        self.elem_data = {}
-        for bi, blk in enumerate(self.blocks):
-            wd = blk.params.get("elem_data")
-            if wd is None:
-                continue
-            wd = np.asarray(wd, dtype=np.float64)
-            out = np.zeros((n_dev, E_max_m[blk.mesh]))
-            for q in range(n_dev):
-                eids = self._eids(q, blk.mesh)
-                out[q, : len(eids)] = wd[eids]
-            self.elem_data[bi] = self.axis.put(out)
-        t7 = time.perf_counter()
-        tm["geometry_s"] = t7 - t6
-
-        # field plans (one per distinct field variable among the blocks)
-        self.field_plans: Dict[int, dict] = {}
-        for blk in self.blocks:
-            for b, _src in blk.fields:
-                self._build_field_plan(b)
-        tm["fields_s"] = time.perf_counter() - t7
+        with timers.timer("pipe.finalize", sync=True):
+            self._finalize(axis)
         self._final = True
+
+    def _finalize(self, axis: Optional[DeviceAxis]) -> None:
+        with timers.timer("pipe.keys", sync=True):
+            n_dev = self.n_dev
+            owner = self.dof_map.owner_of()
+            n_total = self.dof_map.n_global
+            if axis is None:
+                from feddlib_tpu_torch.parallel import multihost
+
+                axis = multihost.global_device_axis(n_dev, self._device_arg)
+            self.axis = axis
+            if self.axis.n_dev != n_dev:
+                raise ValueError("device axis size != the pipeline's shards")
+            dev = self.device = self.axis.device
+            ix = self.axis.ix  # this rank's rows of a stacked host plan
+            n_mesh = self._n_meshes()
+
+            # ------- global symbolic COO (integers only) --------------------
+            keys_per_block = []
+            for blk in self.blocks:
+                E, nr = blk.row_dofs.shape
+                nc = blk.col_dofs.shape[1]
+                keys_per_block.append(
+                    (blk.row_dofs.astype(np.int64)[:, :, None] * n_total
+                     + blk.col_dofs[:, None, :]).reshape(E, nr * nc))
+            coo_keys = (np.concatenate([cb.keys for cb in self.coo_blocks])
+                        if self.coo_blocks else np.zeros(0, np.int64))
+            coo_vals = (np.concatenate([cb.vals for cb in self.coo_blocks])
+                        if self.coo_blocks else np.zeros(0))
+
+        with timers.timer("pipe.patterns", sync=True):
+            # ------- per-shard owned-row patterns ----------------------------
+            # pattern of shard p = the sorted unique (row, col) keys over ALL
+            # shards' contributions whose row p owns (+ the coupling keys): one
+            # global unique, then a stable split by owner — the JAX package's
+            # per-shard np.unique(all_keys[key_owner == p]), entry for entry
+            uk = np.unique(np.concatenate([k.reshape(-1)
+                                           for k in keys_per_block]
+                                          + [coo_keys]))
+            uo = owner[uk // n_total]
+            order = np.argsort(uo, kind="stable")
+            cuts = np.searchsorted(uo[order], np.arange(n_dev + 1))
+            uk = uk[order]
+            loc_patterns = [uk[cuts[p]:cuts[p + 1]] for p in range(n_dev)]
+            del uk, uo, order
+            self.L = max(max((len(k) for k in loc_patterns), default=0), 1)
+
+            # constant coupling values per shard (owner-contributed; no
+            # exchange): const_vals [n_dev, L]
+            cdense = np.zeros((n_dev, self.L))
+            if len(coo_keys):
+                co = owner[coo_keys // n_total]
+                for p in np.unique(co):
+                    sel = co == p
+                    slots = np.searchsorted(loc_patterns[p], coo_keys[sel])
+                    np.add.at(cdense[p], slots, coo_vals[sel])
+            self.const_vals = self.axis.put(cdense)
+
+        with timers.timer("pipe.send", sync=True):
+            # ------- send plans: shard q's contributions to remote rows -----
+            E_max_m = []
+            for m in range(n_mesh):
+                mp, _, _ = self._mesh_part(m)
+                E_max_m.append(int(mp.element_map.local_sizes.max()))
+            self.E_max_m = E_max_m
+            self.E_max = E_max_m[0]
+            send_keys: List[np.ndarray] = []
+            seg_l: List[np.ndarray] = []
+            for q in range(n_dev):
+                mine_l = []
+                for blk, k in zip(self.blocks, keys_per_block):
+                    eids = self._eids(q, blk.mesh)
+                    if len(eids):
+                        mine_l.append(k[eids].reshape(-1))
+                mine = (np.concatenate(mine_l) if mine_l
+                        else np.zeros(0, np.int64))
+                remote = owner[mine // n_total] != q
+                sk = np.unique(mine[remote])
+                send_keys.append(sk)
+                # segment target per raw contribution: local slot or L + slot
+                seg = np.searchsorted(loc_patterns[q], mine)
+                seg[remote] = self.L + np.searchsorted(sk, mine[remote])
+                seg_l.append(seg)
+            self.S = max(max((len(s) for s in send_keys), default=0), 1)
+            dump = self.L + self.S
+
+            # stacked seg plans [n_dev, Σ_b E_max(mesh_b)·w_b], blocks in
+            # element-major order per block; pad elements (beyond E_q) scatter
+            # into the dump slot L + S
+            plan_len = sum(E_max_m[blk.mesh] * k.shape[1]
+                           for blk, k in zip(self.blocks, keys_per_block))
+            seg_stacked = np.full((n_dev, max(plan_len, 1)), dump, np.int64)
+            for q in range(n_dev):
+                pos = spos = 0
+                for blk, keys in zip(self.blocks, keys_per_block):
+                    w = keys.shape[1]
+                    Eq = len(self._eids(q, blk.mesh))
+                    seg_stacked[q, pos: pos + Eq * w] = \
+                        seg_l[q][spos: spos + Eq * w]
+                    pos += E_max_m[blk.mesh] * w
+                    spos += Eq * w
+            del seg_l, keys_per_block
+            self.seg_ids = ix(seg_stacked)
+            del seg_stacked
+            self._seg_plan = stacked_segment_plan(self.seg_ids, dump + 1, dev)
+
+        with timers.timer("pipe.rounds", sync=True):
+            # ------- contribution exchange: neighbour-wise ppermute rounds --
+            meta, sidx, rdst = _exchange_rounds(
+                send_keys, lambda sk: owner[sk // n_total],
+                lambda p, sk: np.searchsorted(loc_patterns[p], sk),
+                n_dev, self.L)
+            self._xc_meta = meta
+            self._xc_sidx = [ix(a) for a in sidx]
+            self._xc_rdst = [ix(a) for a in rdst]
+            self._xc_src = [self.axis.perm_source(perm) for perm, _ in meta]
+            self._xc_plan = (stacked_segment_plan(torch.cat(self._xc_rdst, 1),
+                                                  self.L + 1, dev)
+                             if meta else None)
+            del send_keys
+
+        with timers.timer("pipe.ell", sync=True):
+            # ------- ELL layout + halo plan ----------------------------------
+            N_o = self.dof_map.max_local_size
+            self.N_o = N_o
+            col_gids: List[np.ndarray] = []
+            csr_meta = []
+            K = 1
+            for p in range(n_dev):
+                owned = self.dof_map.partition_indices[p]
+                keys = loc_patterns[p]
+                rows = keys // n_total
+                cols = keys % n_total
+                ghosts = np.setdiff1d(cols, owned)
+                col_gids.append(np.concatenate([owned, ghosts]))
+                # owned-local row index per slot (keys sorted ⇒ rows
+                # ascending; owned rows may have no slots)
+                r_loc = np.searchsorted(owned, rows)
+                lens = np.bincount(r_loc, minlength=len(owned))
+                K = max(K, int(lens.max()) if len(lens) else 1)
+                csr_meta.append((r_loc,
+                                 _col_local_ids(owned, ghosts, cols, N_o),
+                                 lens))
+            self.K = K
+            self.row_lens = np.zeros((n_dev, N_o), dtype=np.int64)
+            ell_cols = np.zeros((n_dev, K, N_o), dtype=np.int64)
+            # → zero
+            ell_src = np.full((n_dev, K, N_o), self.L, dtype=np.int64)
+            for p in range(n_dev):
+                r_loc, c_loc, lens = csr_meta[p]
+                self.row_lens[p, : len(lens)] = lens
+                starts = np.concatenate([[0], np.cumsum(lens)])
+                kk = np.arange(len(r_loc)) - starts[r_loc]
+                ell_cols[p, kk, r_loc] = c_loc
+                ell_src[p, kk, r_loc] = np.arange(len(r_loc))
+            del csr_meta, loc_patterns
+            self.ell_cols_host = ell_cols
+            self.ell_src_host = ell_src
+            self.ell_cols = ix(ell_cols)
+            self.ell_src = ix(ell_src)
+            # plan-static Dirichlet diagonal: the owned diagonal entry of each
+            # row where the row holds one
+            self._diag = self.axis.put(
+                (ell_cols == np.arange(N_o)[None, None, :])
+                & (ell_src != self.L))
+            self.col_gids = col_gids
+        with timers.timer("pipe.halo", sync=True):
+            self.plan = HaloPlan(self.dof_map, col_gids, axis=self.axis)
+
+        with timers.timer("pipe.geometry", sync=True):
+            # ------- geometry (per mesh) + per-element data + field plans ---
+            self.mesh_vc = []
+            self.mesh_valid = []
+            for m in range(n_mesh):
+                mp, _, _ = self._mesh_part(m)
+                self.mesh_vc.append(self.mesh_vert_coords(m, mp.mesh.points))
+                valid = np.zeros((n_dev, E_max_m[m]))
+                for q in range(n_dev):
+                    valid[q, : len(self._eids(q, m))] = 1.0
+                self.mesh_valid.append(self.axis.put(valid))
+            self.vert_coords = self.mesh_vc[0]
+            self.valid = self.mesh_valid[0]
+
+            # reference-configuration coordinates for geom="ref" blocks (the GI
+            # shape derivatives differentiate around the REFERENCE mesh)
+            self._ref_meshes = sorted({blk.mesh for blk in self.blocks
+                                       if blk.geom == "ref"})
+            self.mesh_vc_ref = {}
+            for m in self._ref_meshes:
+                msh = self._mesh_part(m)[0].mesh
+                pts = (msh.ref_points
+                       if getattr(msh, "ref_points", None) is not None
+                       else msh.points)
+                self.mesh_vc_ref[m] = self.mesh_vert_coords(m, pts)
+
+            # per-block row weights [n_dev, E_max, nr]
+            self.row_wts = {}
+            for bi, rw in self.row_weight_defs.items():
+                blk = self.blocks[bi]
+                wt_e = rw[blk.row_dofs - self.offsets[blk.i]]  # [E, nr]
+                out = np.zeros((n_dev, E_max_m[blk.mesh], wt_e.shape[1]))
+                for q in range(n_dev):
+                    eids = self._eids(q, blk.mesh)
+                    out[q, : len(eids)] = wt_e[eids]
+                self.row_wts[bi] = self.axis.put(out)
+
+            # per-element static data ("elem_data" param) per block
+            self.elem_data = {}
+            for bi, blk in enumerate(self.blocks):
+                wd = blk.params.get("elem_data")
+                if wd is None:
+                    continue
+                wd = np.asarray(wd, dtype=np.float64)
+                out = np.zeros((n_dev, E_max_m[blk.mesh]))
+                for q in range(n_dev):
+                    eids = self._eids(q, blk.mesh)
+                    out[q, : len(eids)] = wd[eids]
+                self.elem_data[bi] = self.axis.put(out)
+
+        with timers.timer("pipe.fields", sync=True):
+            # field plans (one per distinct field variable among the blocks)
+            self.field_plans: Dict[int, dict] = {}
+            for blk in self.blocks:
+                for b, _src in blk.fields:
+                    self._build_field_plan(b)
 
     def _build_field_plan(self, b: int) -> None:
         """Halo plan delivering variable b's repeated-node values to each

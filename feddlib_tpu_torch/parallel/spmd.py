@@ -33,8 +33,8 @@ per shard.
 
 from __future__ import annotations
 
-import time
-from dataclasses import dataclass, field
+from contextlib import nullcontext
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
@@ -42,7 +42,10 @@ import torch
 
 from feddlib_tpu_torch.la.csr import CsrMatrix, scatter_sum
 from feddlib_tpu_torch.la.map import IndexMap
+from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
+
+_NO_SPAN = nullcontext()
 
 
 def shard_ranges(n_dev: int, world: int):
@@ -86,11 +89,6 @@ class DeviceAxis:
     lo: int = 0
     hi: Optional[int] = None
     backend: Optional[str] = None
-    #: cross-rank traffic: bytes sent (this rank), seconds in the
-    #: collectives (host clock; exact where the transfer is synchronous,
-    #: as gloo's), and the number of collective calls
-    xfer: dict = field(default_factory=lambda: {"bytes": 0, "seconds": 0.0,
-                                                "calls": 0})
 
     def __post_init__(self):
         if self.hi is None:
@@ -114,9 +112,6 @@ class DeviceAxis:
         """gloo moves host memory: device tensors go through pinned host
         buffers (chosen by the backend's name)."""
         return self.backend == "gloo" and self.device.type == "cuda"
-
-    def reset_xfer(self) -> None:
-        self.xfer.update(bytes=0, seconds=0.0, calls=0)
 
     # -- host plans → this rank's rows ---------------------------------------
     def put(self, a, dtype=None) -> torch.Tensor:
@@ -185,29 +180,29 @@ class DeviceAxis:
         """One batch of point-to-point transfers: items (peer, send rows
         [m, ...], rows to receive) → the received [rows, ...] per item."""
         dist = _dist()
-        t0 = time.perf_counter()
-        ops, recv = [], []
-        for r, snd, n_recv in items:
-            shape = (n_recv,) + tuple(snd.shape[1:])
-            if self._staged:
-                sb = self._host_buf(("s", r), snd.shape, snd.dtype)
-                sb.copy_(snd)
-                rb = self._host_buf(("r", r), shape, snd.dtype)
-            else:
-                sb = snd.contiguous()
-                rb = snd.new_empty(shape)
-            if sb.numel():
-                ops.append(dist.P2POp(dist.isend, sb, r, self.group))
-                self.xfer["bytes"] += sb.numel() * sb.element_size()
-            if rb.numel():
-                ops.append(dist.P2POp(dist.irecv, rb, r, self.group))
-            recv.append(rb)
-        if ops:
-            for w in dist.batch_isend_irecv(ops):
-                w.wait()
-        out = [rb.to(self.device) if self._staged else rb for rb in recv]
-        self.xfer["seconds"] += time.perf_counter() - t0
-        self.xfer["calls"] += 1
+        with _xfer_span():
+            ops, recv, sent = [], [], 0
+            for r, snd, n_recv in items:
+                shape = (n_recv,) + tuple(snd.shape[1:])
+                if self._staged:
+                    sb = self._host_buf(("s", r), snd.shape, snd.dtype)
+                    sb.copy_(snd)
+                    rb = self._host_buf(("r", r), shape, snd.dtype)
+                else:
+                    sb = snd.contiguous()
+                    rb = snd.new_empty(shape)
+                if sb.numel():
+                    ops.append(dist.P2POp(dist.isend, sb, r, self.group))
+                    sent += sb.numel() * sb.element_size()
+                if rb.numel():
+                    ops.append(dist.P2POp(dist.irecv, rb, r, self.group))
+                recv.append(rb)
+            if ops:
+                for w in dist.batch_isend_irecv(ops):
+                    w.wait()
+            out = [rb.to(self.device) if self._staged else rb
+                   for rb in recv]
+        _xfer_count(sent)
         return out
 
     def _host_buf(self, key, shape, dtype):
@@ -226,18 +221,16 @@ class DeviceAxis:
         if self.group is None:
             return t
         dist = _dist()
-        t0 = time.perf_counter()
-        if self._staged:
-            h = self._host_buf("sum", t.shape, t.dtype)
-            h.copy_(t)
-            dist.all_reduce(h, group=self.group)
-            out = h.to(self.device)
-        else:
-            out = t.clone()
-            dist.all_reduce(out, group=self.group)
-        self.xfer["bytes"] += out.numel() * out.element_size()
-        self.xfer["seconds"] += time.perf_counter() - t0
-        self.xfer["calls"] += 1
+        with _xfer_span():
+            if self._staged:
+                h = self._host_buf("sum", t.shape, t.dtype)
+                h.copy_(t)
+                dist.all_reduce(h, group=self.group)
+                out = h.to(self.device)
+            else:
+                out = t.clone()
+                dist.all_reduce(out, group=self.group)
+        _xfer_count(out.numel() * out.element_size())
         return out
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
@@ -251,25 +244,24 @@ class DeviceAxis:
         if self.group is None:
             return x
         dist = _dist()
-        t0 = time.perf_counter()
-        cnt = max(hi - lo for lo, hi in self.ranks)
-        shape = (cnt,) + tuple(x.shape[1:])
-        pad = (self._host_buf("gather", shape, x.dtype) if self._staged
-               else x.new_empty(shape))
-        pad[: x.shape[0]] = x  # rows past this rank's count are not read
-        full = (self._host_buf("gathered", (self.world,) + shape, x.dtype)
-                if self._staged else x.new_empty((self.world,) + shape))
-        full = full.view((self.world * cnt,) + tuple(x.shape[1:]))
-        gather = getattr(dist, "all_gather_single", None) \
-            or dist.all_gather_into_tensor
-        gather(full, pad, group=self.group)
-        rows = torch.as_tensor(np.concatenate(
-            [r * cnt + np.arange(hi - lo) for r, (lo, hi)
-             in enumerate(self.ranks)]), device=full.device)
-        out = full.index_select(0, rows).to(self.device)
-        self.xfer["bytes"] += pad.numel() * pad.element_size()
-        self.xfer["seconds"] += time.perf_counter() - t0
-        self.xfer["calls"] += 1
+        with _xfer_span():
+            cnt = max(hi - lo for lo, hi in self.ranks)
+            shape = (cnt,) + tuple(x.shape[1:])
+            pad = (self._host_buf("gather", shape, x.dtype) if self._staged
+                   else x.new_empty(shape))
+            pad[: x.shape[0]] = x  # rows past this rank's count are not read
+            full = (self._host_buf("gathered", (self.world,) + shape,
+                                   x.dtype)
+                    if self._staged else x.new_empty((self.world,) + shape))
+            full = full.view((self.world * cnt,) + tuple(x.shape[1:]))
+            gather = getattr(dist, "all_gather_single", None) \
+                or dist.all_gather_into_tensor
+            gather(full, pad, group=self.group)
+            rows = torch.as_tensor(np.concatenate(
+                [r * cnt + np.arange(hi - lo) for r, (lo, hi)
+                 in enumerate(self.ranks)]), device=full.device)
+            out = full.index_select(0, rows).to(self.device)
+        _xfer_count(pad.numel() * pad.element_size())
         return out
 
     def broadcast(self, t: torch.Tensor, src_rank: int) -> torch.Tensor:
@@ -277,23 +269,37 @@ class DeviceAxis:
         if self.group is None:
             return t
         dist = _dist()
-        t0 = time.perf_counter()
-        if self._staged:
-            h = self._host_buf("bcast", t.shape, t.dtype)
-            h.copy_(t)
-        else:
-            h = t.contiguous()
-        dist.broadcast(h, src_rank, group=self.group)
-        self.xfer["bytes"] += h.numel() * h.element_size()
-        self.xfer["seconds"] += time.perf_counter() - t0
-        self.xfer["calls"] += 1
-        return h.to(self.device)
+        with _xfer_span():
+            if self._staged:
+                h = self._host_buf("bcast", t.shape, t.dtype)
+                h.copy_(t)
+            else:
+                h = t.contiguous()
+            dist.broadcast(h, src_rank, group=self.group)
+            out = h.to(self.device)
+        _xfer_count(h.numel() * h.element_size())
+        return out
 
 
 def _dist():
     import torch.distributed as dist
 
     return dist
+
+
+def _xfer_span():
+    """The span `axis.xfer` around one cross-rank collective (host clock;
+    exact where the transfer is synchronous, as gloo's), opened only while
+    the registry is observed: the collectives run inside Krylov
+    iterations (solvers/krylov.py's rule)."""
+    return timers.timer("axis.xfer") if timers.observed() else _NO_SPAN
+
+
+def _xfer_count(n_bytes: int) -> None:
+    """One collective of this rank: counters `axis.xfer_calls` and
+    `axis.xfer_bytes` (the bytes it sent)."""
+    timers.count("axis.xfer_calls")
+    timers.count("axis.xfer_bytes", n_bytes)
 
 
 def _col_local_ids(owned: np.ndarray, ghosts: np.ndarray, cols: np.ndarray,
@@ -575,7 +581,9 @@ class DistributedCsr:
     to their owners; a shard's column map is its owned ids and the column
     support of its rows (ghosts), which defines the halo plan of the SpMV.
     The host plans are global; the device tensors hold the shards of the
-    axis' rank ([n_local, K, N_o]: every shard without ranks)."""
+    axis' rank ([n_local, K, N_o]: every shard without ranks).  Built from
+    a global matrix it opens the synchronised spans (utils/timers.py)
+    `dist.rows`, `dist.halo_plan` and `dist.ell`."""
 
     @classmethod
     def from_parts(cls, unique_map: IndexMap, col_gids: List[np.ndarray],
@@ -641,51 +649,50 @@ class DistributedCsr:
         self.axis = axis
         self.device = axis.device
 
-        t0 = time.perf_counter()
-        sp = global_csr.to_scipy()
-        col_gids = []
-        K = 0
-        rows_info = []
-        N_o = unique_map.max_local_size
-        for p in range(n_dev):
-            owned = unique_map.partition_indices[p]
-            sub = sp[owned]  # [n_own, n_global] CSR
-            ghosts = np.setdiff1d(np.unique(sub.indices), owned)
-            col_gids.append(np.concatenate([owned, ghosts]))
-            rows_info.append((sub, owned, ghosts))
-            K = max(K, int(np.diff(sub.indptr).max()) if sub.nnz else 1)
-        self.K = K
-        t1 = time.perf_counter()
-        self.plan = HaloPlan(unique_map, col_gids, axis=axis)
-        t2 = time.perf_counter()
+        # set-up spans: the shards' rows and column maps, the halo plan,
+        # the ELL layout and its upload
+        with timers.timer("dist.rows", sync=True):
+            sp = global_csr.to_scipy()
+            col_gids = []
+            K = 0
+            rows_info = []
+            N_o = unique_map.max_local_size
+            for p in range(n_dev):
+                owned = unique_map.partition_indices[p]
+                sub = sp[owned]  # [n_own, n_global] CSR
+                ghosts = np.setdiff1d(np.unique(sub.indices), owned)
+                col_gids.append(np.concatenate([owned, ghosts]))
+                rows_info.append((sub, owned, ghosts))
+                K = max(K, int(np.diff(sub.indptr).max()) if sub.nnz else 1)
+            self.K = K
+        with timers.timer("dist.halo_plan", sync=True):
+            self.plan = HaloPlan(unique_map, col_gids, axis=axis)
         if self.plan.N_o != N_o:
             raise AssertionError("plan width != the largest owned set")
 
-        ell_cols = np.zeros((n_dev, K, N_o), dtype=np.int64)
-        ell_data = np.zeros((n_dev, K, N_o), dtype=np.float64)
-        row_lens = np.zeros((n_dev, N_o), dtype=np.int64)
-        for p in range(n_dev):
-            sub, owned_p, ghosts_p = rows_info[p]
-            n_own = sub.shape[0]
-            # transposed ELL [K, N_o]: rows along the contiguous axis; ghost
-            # locals start at N_o (the x_col layout [owned padded | ghosts])
-            lens = np.diff(sub.indptr)
-            r = np.repeat(np.arange(n_own), lens)
-            pos = np.arange(sub.nnz) - np.repeat(sub.indptr[:-1], lens)
-            ell_cols[p, pos, r] = _col_local_ids(owned_p, ghosts_p,
-                                                 sub.indices, N_o)
-            ell_data[p, pos, r] = sub.data
-            row_lens[p, :n_own] = lens
-        self._ell_cols_host = ell_cols
-        self.ell_cols = axis.ix(ell_cols)
-        self.ell_data = axis.put(ell_data, dtype)
+        with timers.timer("dist.ell", sync=True):
+            ell_cols = np.zeros((n_dev, K, N_o), dtype=np.int64)
+            ell_data = np.zeros((n_dev, K, N_o), dtype=np.float64)
+            row_lens = np.zeros((n_dev, N_o), dtype=np.int64)
+            for p in range(n_dev):
+                sub, owned_p, ghosts_p = rows_info[p]
+                n_own = sub.shape[0]
+                # transposed ELL [K, N_o]: rows along the contiguous axis;
+                # ghost locals start at N_o (the x_col layout [owned padded
+                # | ghosts])
+                lens = np.diff(sub.indptr)
+                r = np.repeat(np.arange(n_own), lens)
+                pos = np.arange(sub.nnz) - np.repeat(sub.indptr[:-1], lens)
+                ell_cols[p, pos, r] = _col_local_ids(owned_p, ghosts_p,
+                                                     sub.indices, N_o)
+                ell_data[p, pos, r] = sub.data
+                row_lens[p, :n_own] = lens
+            self._ell_cols_host = ell_cols
+            self.ell_cols = axis.ix(ell_cols)
+            self.ell_data = axis.put(ell_data, dtype)
         self.col_gids = col_gids
         self.row_lens = row_lens
         self._locator = None
-        # setup seconds: the shards' rows and column maps, the halo plan,
-        # the ELL layout and its upload
-        self.timings = {"rows_s": t1 - t0, "plan_s": t2 - t1,
-                        "ell_s": time.perf_counter() - t2}
 
     def _cmap(self, p: int) -> np.ndarray:
         """Global gid of each column-map-local id of shard p (owned padded

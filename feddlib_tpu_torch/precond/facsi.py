@@ -24,8 +24,6 @@ and for the five GI fields with a geometry stage first.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -34,9 +32,14 @@ from feddlib_tpu_torch.la.csr import CsrMatrix
 from feddlib_tpu_torch.la.map import IndexMap
 from feddlib_tpu_torch.mesh.partition import MeshPartition
 from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+from feddlib_tpu_torch.utils import timers
 
 
 class FaCSIPreconditioner:
+    """The serial FaCSI of the four GE fields; its set-up opens the
+    synchronised spans (utils/timers.py) `facsi.solid` and `facsi.fluid`
+    around the two subdomain preconditioners."""
+
     def __init__(self, fsi, sys_bc: BlockMatrix, n_subdomains: int = 4,
                  overlap: int = 1):
         from feddlib_tpu_torch.solvers.linear import _p2_unique_map
@@ -51,43 +54,43 @@ class FaCSIPreconditioner:
         self.fsi = fsi
         self.sizes = sizes
         self.off = np.concatenate([[0], np.cumsum(sizes)])
-        self.timings = {}
 
         # --- solid sub-preconditioner (field 2)
-        t0 = time.perf_counter()
-        dom_d = fsi.variables[2][0]
-        part_d = MeshPartition((dom_d.parent_p1 or dom_d).mesh, n_subdomains)
-        nmap_d = (_p2_unique_map(part_d, dom_d)
-                  if dom_d.fe_type == "P2" else part_d.unique_map)
-        self.solid_prec = SchwarzPreconditioner(
-            sys_bc.get_block(2, 2), nmap_d.build_vec_field_map(fsi.dim),
-            overlap=overlap)
-        self.timings["solid"] = time.perf_counter() - t0
+        with timers.timer("facsi.solid", sync=True):
+            dom_d = fsi.variables[2][0]
+            part_d = MeshPartition((dom_d.parent_p1 or dom_d).mesh,
+                                   n_subdomains)
+            nmap_d = (_p2_unique_map(part_d, dom_d)
+                      if dom_d.fe_type == "P2" else part_d.unique_map)
+            self.solid_prec = SchwarzPreconditioner(
+                sys_bc.get_block(2, 2), nmap_d.build_vec_field_map(fsi.dim),
+                overlap=overlap)
 
         # --- fluid block with interface velocity rows → identity
-        t0 = time.perf_counter()
-        uf = fsi._uf_cols  # interface u-dofs (fluid numbering)
-        fl = BlockMatrix(sizes[:2])
-        fl.add_block(0, 0, _rows_to_identity(sys_bc.get_block(0, 0), uf))
-        fl.add_block(0, 1, _rows_to_zero(sys_bc.get_block(0, 1), uf))
-        fl.add_block(1, 0, sys_bc.get_block(1, 0))
-        if sys_bc.get_block(1, 1) is not None:
-            fl.add_block(1, 1, sys_bc.get_block(1, 1))
-        Ff = fl.merge()
-        dom_u = fsi.variables[0][0]
-        part_u = MeshPartition((dom_u.parent_p1 or dom_u).mesh, n_subdomains)
-        nmap_u = (_p2_unique_map(part_u, dom_u)
-                  if dom_u.fe_type == "P2" else part_u.unique_map)
-        dof_u = nmap_u.build_vec_field_map(fsi.dim)
-        # merged fluid dof map: u dofs ++ p dofs (block offset sizes[0]);
-        # the pressure lives on the P1 parent's nodes
-        nmap_p = part_u.unique_map
-        fmap = IndexMap(sizes[0] + sizes[1], [
-            np.sort(np.concatenate([dof_u.partition_indices[p],
-                                    nmap_p.partition_indices[p] + sizes[0]]))
-            for p in range(n_subdomains)])
-        self.fluid_prec = SchwarzPreconditioner(Ff, fmap, overlap=overlap)
-        self.timings["fluid"] = time.perf_counter() - t0
+        with timers.timer("facsi.fluid", sync=True):
+            uf = fsi._uf_cols  # interface u-dofs (fluid numbering)
+            fl = BlockMatrix(sizes[:2])
+            fl.add_block(0, 0, _rows_to_identity(sys_bc.get_block(0, 0), uf))
+            fl.add_block(0, 1, _rows_to_zero(sys_bc.get_block(0, 1), uf))
+            fl.add_block(1, 0, sys_bc.get_block(1, 0))
+            if sys_bc.get_block(1, 1) is not None:
+                fl.add_block(1, 1, sys_bc.get_block(1, 1))
+            Ff = fl.merge()
+            dom_u = fsi.variables[0][0]
+            part_u = MeshPartition((dom_u.parent_p1 or dom_u).mesh,
+                                   n_subdomains)
+            nmap_u = (_p2_unique_map(part_u, dom_u)
+                      if dom_u.fe_type == "P2" else part_u.unique_map)
+            dof_u = nmap_u.build_vec_field_map(fsi.dim)
+            # merged fluid dof map: u dofs ++ p dofs (block offset sizes[0]);
+            # the pressure lives on the P1 parent's nodes
+            nmap_p = part_u.unique_map
+            fmap = IndexMap(sizes[0] + sizes[1], [
+                np.sort(np.concatenate(
+                    [dof_u.partition_indices[p],
+                     nmap_p.partition_indices[p] + sizes[0]]))
+                for p in range(n_subdomains)])
+            self.fluid_prec = SchwarzPreconditioner(Ff, fmap, overlap=overlap)
 
         # coupling pieces
         dev = sys_bc.get_block(0, 0).device
@@ -297,50 +300,52 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
     ds_cols / iface_rows are the FSI problem's matched-interface index
     triple (block-local).  `build.refresh(dmat_new)` gives new arrays for
     new values on the same pattern (only the factors are recomputed);
-    `build.timings` holds the setup seconds."""
+    the set-up opens the synchronised spans (utils/timers.py)
+    `facsi.solid`, `facsi.fluid`, `facsi.geometry` (GI) and
+    `facsi.interface` (the interface scatter plans)."""
     from feddlib_tpu_torch.parallel.spmd import DistributedCsr
 
-    t0 = time.perf_counter()
     o = [int(v) for v in offsets[:6]]
     has_geom = len(o) == 6  # five-field GI system (…, λ, g)
     n_lam = o[4] - o[3]
     unique_map = dmat.unique_map
     N_o = dmat.plan.N_o
-    vals_flat = dmat.values_host()
-
     uf_glob = np.asarray(uf_cols, np.int64) + o[0]
     ds_glob = np.asarray(ds_cols, np.int64) + o[2]
     lam_glob = np.asarray(iface_rows, np.int64) + o[3]
     slot = np.arange(n_lam)  # interface slot k ↔ (uf[k], ds[k], λ row[k])
 
-    inv_s, ovcol_s, spos, plan_s, fact_s = _field_subdomains(
-        dmat, o[2], o[3], overlap, vals_flat)
-    t1 = time.perf_counter()
-    inv_f, ovcol_f, fpos, plan_f, fact_f = _field_subdomains(
-        dmat, o[0], o[2], overlap, vals_flat, ident_rows=uf_glob)
-    t2 = time.perf_counter()
+    with timers.timer("facsi.solid", sync=True):
+        vals_flat = dmat.values_host()
+        inv_s, ovcol_s, spos, plan_s, fact_s = _field_subdomains(
+            dmat, o[2], o[3], overlap, vals_flat)
+    with timers.timer("facsi.fluid", sync=True):
+        inv_f, ovcol_f, fpos, plan_f, fact_f = _field_subdomains(
+            dmat, o[0], o[2], overlap, vals_flat, ident_rows=uf_glob)
     if has_geom:  # the GI geometry sub-solve
-        inv_g, ovcol_g, gpos, plan_g, fact_g = _field_subdomains(
-            dmat, o[4], o[5], overlap, vals_flat)
+        with timers.timer("facsi.geometry", sync=True):
+            inv_g, ovcol_g, gpos, plan_g, fact_g = _field_subdomains(
+                dmat, o[4], o[5], overlap, vals_flat)
 
     axis = dmat.axis
 
     def sp(gids):
         return _scatter_plan(unique_map, gids, slot, N_o, n_lam, axis)
 
-    src_lam, dst_lam = sp(lam_glob)
-    src_ds, dst_ds = sp(ds_glob)
-    src_uf, dst_uf = sp(uf_glob)
-    # writers: owned uf positions ← uΓ slot; owned λ positions ← zλ slot
-    # (the same plans as the readers)
-    plans = [plan_s, plan_f] + ([plan_g] if has_geom else [])
-    imps = [pl.importer() for pl in plans]
-    head = [src_lam, dst_lam, src_ds, dst_ds, src_uf, dst_uf]
-    fields = [[inv_s, ovcol_s, spos], [inv_f, ovcol_f, fpos]]
-    if has_geom:
-        fields.append([inv_g, ovcol_g, gpos])
-    arrays = ([a for f in fields for a in f] + head
-              + [pl.import_arrays for pl in plans])
+    with timers.timer("facsi.interface", sync=True):
+        src_lam, dst_lam = sp(lam_glob)
+        src_ds, dst_ds = sp(ds_glob)
+        src_uf, dst_uf = sp(uf_glob)
+        # writers: owned uf positions ← uΓ slot; owned λ positions ← zλ
+        # slot (the same plans as the readers)
+        plans = [plan_s, plan_f] + ([plan_g] if has_geom else [])
+        imps = [pl.importer() for pl in plans]
+        head = [src_lam, dst_lam, src_ds, dst_ds, src_uf, dst_uf]
+        fields = [[inv_s, ovcol_s, spos], [inv_f, ovcol_f, fpos]]
+        if has_geom:
+            fields.append([inv_g, ovcol_g, gpos])
+        arrays = ([a for f in fields for a in f] + head
+                  + [pl.import_arrays for pl in plans])
     n_f = len(fields)
     inv_dt = 1.0 / dt
 
@@ -400,8 +405,6 @@ def distributed_facsi(dmat, offsets, uf_cols, ds_cols, iface_rows,
         return out
 
     build.refresh = refresh
-    build.timings = {"solid_s": t1 - t0, "fluid_s": t2 - t1,
-                     "rest_s": time.perf_counter() - t2}
     build.shape = {"S": [int(f[0].shape[1]) for f in fields],
                    "n_lam": n_lam}
     return build, arrays

@@ -27,7 +27,6 @@ of the mixed-precision solve is precond/cluster_coarse.py.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -548,7 +547,9 @@ class TwoLevelSchwarz:
     IPOU coarse level.  'Level Combination' Additive (default) applies both
     levels to the same residual; Multiplicative applies the coarse
     correction to the residual updated by the first level (one more SpMV
-    per apply, typically fewer Krylov iterations)."""
+    per apply, typically fewer Krylov iterations).  Its set-up opens the
+    synchronised spans (utils/timers.py) `prec.level1` and `prec.gdsw`, as
+    the mixed path's `PaddedTwoLevelSchwarz` does."""
 
     def __init__(self, A: CsrMatrix, unique_map: IndexMap,
                  node_part_sets: Optional[List[np.ndarray]] = None,
@@ -568,26 +569,24 @@ class TwoLevelSchwarz:
                              f"{level_combination!r}")
         self.level_combination = level_combination
         self.A = A
-        t0 = time.perf_counter()
-        self.level1 = SchwarzPreconditioner(A, unique_map, overlap=overlap,
-                                            combine=combine,
-                                            solver=subdomain_solver)
-        t1 = time.perf_counter()
-        try:
-            self.coarse = GDSWCoarseOperator(
-                A, unique_map, node_part_sets, points, dofs_per_node,
-                null_space, dirichlet_mask, rap=rap, blocks=blocks,
-                variant=variant, ipou=ipou)
-        except ValueError as e:
-            # tiny problems can have a fully-Dirichlet interface → no coarse
-            # functions; degrade gracefully to one level
-            import warnings
+        with timers.timer("prec.level1", sync=True):
+            self.level1 = SchwarzPreconditioner(
+                A, unique_map, overlap=overlap, combine=combine,
+                solver=subdomain_solver)
+        with timers.timer("prec.gdsw", sync=True):
+            try:
+                self.coarse = GDSWCoarseOperator(
+                    A, unique_map, node_part_sets, points, dofs_per_node,
+                    null_space, dirichlet_mask, rap=rap, blocks=blocks,
+                    variant=variant, ipou=ipou)
+            except ValueError as e:
+                # tiny problems can have a fully-Dirichlet interface → no
+                # coarse functions; degrade gracefully to one level
+                import warnings
 
-            warnings.warn(f"GDSW coarse space unavailable ({e}); "
-                          "falling back to one-level Schwarz")
-            self.coarse = None
-        self.timings = {"level1_s": t1 - t0,
-                        "gdsw_s": time.perf_counter() - t1}
+                warnings.warn(f"GDSW coarse space unavailable ({e}); "
+                              "falling back to one-level Schwarz")
+                self.coarse = None
         self._op = None
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
@@ -651,14 +650,17 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
     The host setup (Φ, A₀) is replicated on every rank from the gathered
     rows; each rank keeps its shards' level-1 factors and compact Φ.
 
-    Returns (build_fn, arrays); `build_fn.timings` adds "gdsw_s" (Φ and
-    A₀), "phi_s" (the compact Φ) and "coarse_s" (the coarse solver's setup)
-    to the level-1 seconds, and `build_fn.shape` adds nc and C_loc."""
+    Returns (build_fn, arrays); `build_fn.shape` adds nc and C_loc to the
+    level-1 sizes.  The set-up opens the synchronised spans
+    (utils/timers.py) `prec.level1` (around `distributed_schwarz`'s own),
+    `prec.gdsw` (Φ and A₀), `prec.phi` (the compact Φ) and
+    `prec.coarse_solver` (the coarse solver's set-up)."""
     from feddlib_tpu_torch.parallel.spmd import DistributedCsr
     from feddlib_tpu_torch.precond.schwarz import distributed_schwarz
 
-    build1, arrays1 = distributed_schwarz(dmat, overlap=overlap,
-                                          combine=combine, factor=factor)
+    with timers.timer("prec.level1", sync=True):
+        build1, arrays1 = distributed_schwarz(dmat, overlap=overlap,
+                                              combine=combine, factor=factor)
     n1 = len(arrays1)
     umap = dmat.unique_map
     n_dev, dev = dmat.n_dev, dmat.device
@@ -678,66 +680,66 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
         raise ValueError("choose coarse_ranks OR coarse_procs")
     if coarse_solver not in ("dense", "sparse", "iterative"):
         raise ValueError(f"unknown coarse solver {coarse_solver!r}")
-    t0 = time.perf_counter()
-    coarse = GDSWCoarseOperator(
-        None, umap,
-        part.repeated_map.partition_indices if part is not None else None,
-        points, dofs_per_node, null_space, dirichlet_mask, variant=variant,
-        blocks=blocks, row_source=dmat.local_rows, ipou=ipou, device=dev)
-    mult = level_combination == "Multiplicative"
-    t1 = time.perf_counter()
-    phi = coarse.phi.to_scipy()
-    nc = coarse.n_coarse
-    N_o = dmat.plan.N_o
-    # the compact per-shard Φ: only the coarse functions supported on the
-    # shard's owned rows
-    sup = []
-    for p in range(n_dev):
-        owned = umap.partition_indices[p]
-        sup.append(np.unique(phi[owned].indices) if len(owned)
-                   else np.zeros(0, np.int64))
-    C_loc = max(max((len(s) for s in sup), default=1), 1)
-    # this rank's shards [lo, hi)
-    phi_comp = np.zeros((hi - lo, N_o, C_loc))
-    cids = np.full((hi - lo, C_loc), nc, np.int64)  # pad → zero slot nc
-    for p in range(lo, hi):
-        owned = umap.partition_indices[p]
-        s = sup[p]
-        cids[p - lo, : len(s)] = s
-        if len(owned):
-            sub = phi[owned].tocoo()
-            phi_comp[p - lo, sub.row, np.searchsorted(s, sub.col)] = sub.data
-    arrays = list(arrays1) + [torch.as_tensor(phi_comp, device=dev),
-                              torch.as_tensor(cids, device=dev)]
-    # the coarse solve's placement across ranks: None = every rank solves
-    root = None
-    if axis.group is not None and (coarse_procs or coarse_ranks):
-        named = (range(coarse_procs) if coarse_procs
-                 else range(n_dev - coarse_ranks, n_dev))
-        root = min(axis.rank_of(p) for p in named)
-    t2 = time.perf_counter()
+    with timers.timer("prec.gdsw", sync=True):
+        coarse = GDSWCoarseOperator(
+            None, umap,
+            part.repeated_map.partition_indices if part is not None else None,
+            points, dofs_per_node, null_space, dirichlet_mask, variant=variant,
+            blocks=blocks, row_source=dmat.local_rows, ipou=ipou, device=dev)
+        mult = level_combination == "Multiplicative"
+    with timers.timer("prec.phi", sync=True):
+        phi = coarse.phi.to_scipy()
+        nc = coarse.n_coarse
+        N_o = dmat.plan.N_o
+        # the compact per-shard Φ: only the coarse functions supported on the
+        # shard's owned rows
+        sup = []
+        for p in range(n_dev):
+            owned = umap.partition_indices[p]
+            sup.append(np.unique(phi[owned].indices) if len(owned)
+                       else np.zeros(0, np.int64))
+        C_loc = max(max((len(s) for s in sup), default=1), 1)
+        # this rank's shards [lo, hi)
+        phi_comp = np.zeros((hi - lo, N_o, C_loc))
+        cids = np.full((hi - lo, C_loc), nc, np.int64)  # pad → zero slot nc
+        for p in range(lo, hi):
+            owned = umap.partition_indices[p]
+            s = sup[p]
+            cids[p - lo, : len(s)] = s
+            if len(owned):
+                sub = phi[owned].tocoo()
+                phi_comp[p - lo, sub.row,
+                         np.searchsorted(s, sub.col)] = sub.data
+        arrays = list(arrays1) + [torch.as_tensor(phi_comp, device=dev),
+                                  torch.as_tensor(cids, device=dev)]
+        # the coarse solve's placement across ranks: None = every rank solves
+        root = None
+        if axis.group is not None and (coarse_procs or coarse_ranks):
+            named = (range(coarse_procs) if coarse_procs
+                     else range(n_dev - coarse_ranks, n_dev))
+            root = min(axis.rank_of(p) for p in named)
 
-    if coarse_solver == "sparse":
-        from feddlib_tpu_torch.la.sparse_lu import BatchedSparseLU
+    with timers.timer("prec.coarse_solver", sync=True):
+        if coarse_solver == "sparse":
+            from feddlib_tpu_torch.la.sparse_lu import BatchedSparseLU
 
-        lu = BatchedSparseLU([coarse.A0_sparse().tocsc()], device=dev)
-        arrays += list(lu.arrays())
-        S_lu = lu.S
-    elif coarse_solver == "iterative":
-        A0s = coarse.A0_sparse()
-        kmax = max(int(np.diff(A0s.indptr).max()), 1)
-        ecols = np.zeros((nc, kmax), np.int64)
-        evals = np.zeros((nc, kmax))
-        for i in range(nc):
-            lo, hi = A0s.indptr[i], A0s.indptr[i + 1]
-            ecols[i, : hi - lo] = A0s.indices[lo:hi]
-            evals[i, : hi - lo] = A0s.data[lo:hi]
-        arrays += [torch.as_tensor(evals, device=dev),
-                   torch.as_tensor(ecols, device=dev)]
-    else:
-        # one [nc, nc] copy, seen by every shard of the rank
-        arrays.append(coarse.A0_inv.expand(hi - lo, nc, nc))
-    t3 = time.perf_counter()
+            lu = BatchedSparseLU([coarse.A0_sparse().tocsc()], device=dev)
+            arrays += list(lu.arrays())
+            S_lu = lu.S
+        elif coarse_solver == "iterative":
+            A0s = coarse.A0_sparse()
+            kmax = max(int(np.diff(A0s.indptr).max()), 1)
+            ecols = np.zeros((nc, kmax), np.int64)
+            evals = np.zeros((nc, kmax))
+            for i in range(nc):
+                lo, hi = A0s.indptr[i], A0s.indptr[i + 1]
+                ecols[i, : hi - lo] = A0s.indices[lo:hi]
+                evals[i, : hi - lo] = A0s.data[lo:hi]
+            arrays += [torch.as_tensor(evals, device=dev),
+                       torch.as_tensor(ecols, device=dev)]
+        else:
+            # one [nc, nc] copy, seen by every shard of the rank
+            arrays.append(coarse.A0_inv.expand(hi - lo, nc, nc))
 
     def build(prec_arrays, ctx):
         from feddlib_tpu_torch.solvers.krylov import gmres_loop
@@ -791,7 +793,5 @@ def distributed_two_level(dmat, part=None, points: Optional[np.ndarray] = None,
 
         return M
 
-    build.timings = dict(build1.timings, gdsw_s=t1 - t0, phi_s=t2 - t1,
-                         coarse_s=t3 - t2)
     build.shape = dict(build1.shape, nc=nc, C_loc=C_loc)
     return build, arrays

@@ -35,7 +35,6 @@ coordinates, the solution rides its shard mirror across Newton steps.
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import Callable, Optional, Sequence
 
@@ -52,6 +51,7 @@ from feddlib_tpu_torch.precond.facsi import _rows_to_identity
 from feddlib_tpu_torch.problems.base import NonLinearProblem
 from feddlib_tpu_torch.problems.geometry import Geometry
 from feddlib_tpu_torch.problems.nonlin_elasticity import assemble_hyper
+from feddlib_tpu_torch.utils import timers
 
 # elements per chunk of the GI residual
 _CHUNK = 16384
@@ -362,22 +362,24 @@ class FSI(NonLinearProblem):
         """The cached multi-mesh pipeline of the distributed GE loop: the
         plans are coordinate-independent (one build serves every mesh
         move); a new dt rebuilds (its −1/dt couplings are plan
-        constants)."""
+        constants).  A build opens the synchronised span `fsi.pipeline`
+        (utils/timers.py), as the GI loop's does."""
         key = (n_dev, solid_devices, self.dt)
         cache = getattr(self, "_pipe_ge", None)
         if cache is None or cache["key"] != key:
-            t0 = time.perf_counter()
-            pipe = self.build_pipeline(n_dev, solid_devices=solid_devices)
+            with timers.timer("fsi.pipeline", sync=True):
+                pipe = self.build_pipeline(n_dev,
+                                           solid_devices=solid_devices)
             cache = {"key": key, "pipe": pipe, "prec": None, "solver": None,
-                     "locator": None, "builds": 0,
-                     "finalize_s": time.perf_counter() - t0}
+                     "locator": None, "builds": 0}
             self._pipe_ge = cache
         return cache
 
     def _dist_finish(self, cache, dmat) -> None:
         """The shared tail of the distributed reassemblies: Dirichlet rows,
-        the plan-static locator, the FaCSI build or refresh, the solver's
-        new values."""
+        the plan-static locator, the FaCSI build or refresh (one
+        synchronised span `facsi.setup` each, utils/timers.py), the
+        solver's new values."""
         from feddlib_tpu_torch.parallel.solve import DistributedSolver
         from feddlib_tpu_torch.precond.facsi import distributed_facsi
 
@@ -389,17 +391,16 @@ class FSI(NonLinearProblem):
         else:  # the symbolic pattern is plan-static
             dmat._locator = cache["locator"]
         pl = self.parameter_list
-        t0 = time.perf_counter()
-        if cache["prec"] is None:
-            cache["prec"] = distributed_facsi(
-                dmat, pipe.offsets, self._uf_cols, self._ds_cols,
-                self._iface_rows, self.dt,
-                overlap=int(pl.get("Overlap", 1)))
-            cache["builds"] += 1
-        elif not bool(pl.get("Reuse Preconditioner", False)):
-            build, _ = cache["prec"]
-            cache["prec"] = (build, build.refresh(dmat))
-        cache.setdefault("prec_s", []).append(time.perf_counter() - t0)
+        with timers.timer("facsi.setup", sync=True):
+            if cache["prec"] is None:
+                cache["prec"] = distributed_facsi(
+                    dmat, pipe.offsets, self._uf_cols, self._ds_cols,
+                    self._iface_rows, self.dt,
+                    overlap=int(pl.get("Overlap", 1)))
+                cache["builds"] += 1
+            elif not bool(pl.get("Reuse Preconditioner", False)):
+                build, _ = cache["prec"]
+                cache["prec"] = (build, build.refresh(dmat))
         if cache["solver"] is None:
             cache["solver"] = DistributedSolver(dmat, pipe.axis)
         else:
@@ -499,9 +500,10 @@ class FSI(NonLinearProblem):
             t_new = t + dt
             # 1) geometry: harmonic extension of the interface displacement
             d_np = self.solution[2].cpu().numpy().reshape(-1, dim)
-            g = self.geometry.solve_motion(
-                self.interface.nodes_a, d_np[self.interface.nodes_b],
-                boundary_flags=self.geometry_boundary_flags)
+            with timers.timer("fsi.geometry", sync=True):
+                g = self.geometry.solve_motion(
+                    self.interface.nodes_a, d_np[self.interface.nodes_b],
+                    boundary_flags=self.geometry_boundary_flags)
             # 2) ALE move + mesh velocity w
             dom_u.mesh.move(g)
             dom_u.invalidate_geometry()
@@ -644,12 +646,10 @@ class FSI(NonLinearProblem):
             key = ("gi", n_dev, sdev, self.dt)
             dist_cache = getattr(self, "_pipe_gi", None)
             if dist_cache is None or dist_cache["key"] != key:
-                t0 = time.perf_counter()
+                with timers.timer("fsi.pipeline", sync=True):
+                    pipe = self.build_pipeline_gi(n_dev, solid_devices=sdev)
                 dist_cache = {"key": key, "prec": None, "solver": None,
-                              "locator": None, "builds": 0,
-                              "pipe": self.build_pipeline_gi(
-                                  n_dev, solid_devices=sdev)}
-                dist_cache["finalize_s"] = time.perf_counter() - t0
+                              "locator": None, "builds": 0, "pipe": pipe}
                 self._pipe_gi = dist_cache
             self._dist_active = dist_cache
 

@@ -26,7 +26,6 @@ the chain.
 
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
@@ -398,7 +397,8 @@ class LinearSolver:
         SpMV + dense-block restricted Schwarz (+ padded GDSW coarse level),
         the whole inner loop in PADDED cluster space.  A span `solve.mixed`
         (utils/timers.py); a cache build adds the synchronised spans
-        `mixed.partition` and `mixed.layout`, and `prec.setup`."""
+        `mixed.partition` and `mixed.layout`, and `prec.setup` (the
+        one-level preconditioner's synchronised `prec.level1` inside)."""
         with timers.timer("solve.mixed"):
             return self._mixed(problem, A, b, params, tol, maxiter, restart)
 
@@ -477,7 +477,8 @@ class LinearSolver:
                                                      "Multiplicative"),
                         A_padded_op=sell32.operator())
                 else:
-                    prec32 = DenseBlockSchwarz(A, db32)
+                    with timers.timer("prec.level1", sync=True):
+                        prec32 = DenseBlockSchwarz(A, db32)
             cache = {"pattern": A.pattern, "db32": db32, "sell": sell32,
                      "prec": prec32, "A_op": sell32.operator(),
                      "M_op": prec32.padded_operator()}
@@ -516,10 +517,12 @@ class LinearSolver:
         else the device count of the problem's device type (the JAX
         package's len(jax.devices()), 8 virtual devices in its test
         harness), so tests and the card's smoke run pass it.  The shards,
-        plans and preconditioner are cached on the problem (`_dist_cache`) while A's pattern is unchanged and
-        the preconditioner is not stale.  With 'Use Device Pipeline' and a
-        problem that has `pipeline_blocks`, `_solve_pipeline` assembles
-        the shards on the device instead."""
+        plans and preconditioner are cached on the problem (`_dist_cache`)
+        while A's pattern is unchanged and the preconditioner is not stale;
+        a cache build opens the synchronised spans (utils/timers.py)
+        `dist.partition`, `dist.matrix` and `dist.precond`.  With 'Use
+        Device Pipeline' and a problem that has `pipeline_blocks`,
+        `_solve_pipeline` assembles the shards on the device instead."""
         from feddlib_tpu_torch.parallel import multihost
         from feddlib_tpu_torch.parallel.solve import DistributedSolver
         from feddlib_tpu_torch.parallel.spmd import (DistributedCsr,
@@ -538,24 +541,24 @@ class LinearSolver:
             dom0 = problem.domains[0]
             base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
                          else dom0.mesh)
-            t0 = time.perf_counter()
-            part = MeshPartition(base_mesh, n_dev)
-            dof_map = problem.preconditioner._merged_dof_map(part)
-            t_p = time.perf_counter()
+            with timers.timer("dist.partition", sync=True):
+                part = MeshPartition(base_mesh, n_dev)
+                dof_map = problem.preconditioner._merged_dof_map(part)
             axis = multihost.global_device_axis(n_dev, dev)
-            dmat = DistributedCsr(A, dof_map, axis=axis)
-            t1 = time.perf_counter()
+            with timers.timer("dist.matrix", sync=True):
+                dmat = DistributedCsr(A, dof_map, axis=axis)
             solver = DistributedSolver(dmat, axis)
             nsp, _, _ = _coarse_space(params)
             # the coarse-space feed: one field's partition, points and dofs
             # per node, or the monolithic block GDSW of the serial path
-            precond = _distributed_precond(
-                problem, dmat, params,
-                **(dict(part=part, points=dom0.mesh.points,
-                        dofs_per_node=problem.total_dofs_per_node(),
-                        null_space=nsp) if len(problem.variables) == 1
-                   else dict(blocks=problem.preconditioner._block_specs(
-                       part, nsp))))
+            with timers.timer("dist.precond", sync=True):
+                precond = _distributed_precond(
+                    problem, dmat, params,
+                    **(dict(part=part, points=dom0.mesh.points,
+                            dofs_per_node=problem.total_dofs_per_node(),
+                            null_space=nsp) if len(problem.variables) == 1
+                       else dict(blocks=problem.preconditioner._block_specs(
+                           part, nsp))))
             # the stacked lane of each global dof, for the vector scatter /
             # gather on the device (the rank's own, and all of them)
             gids, lanes = local_lanes(dof_map, dmat.plan.N_o, axis)
@@ -566,10 +569,7 @@ class LinearSolver:
                      "gids": torch.as_tensor(gids, device=xdev),
                      "lanes": torch.as_tensor(lanes, device=xdev),
                      "gids_all": torch.as_tensor(g_all, device=xdev),
-                     "lanes_all": torch.as_tensor(l_all, device=xdev),
-                     "timings": {"partition_s": t_p - t0,
-                                 "dmat_s": t1 - t_p,
-                                 "precond_s": time.perf_counter() - t1}}
+                     "lanes_all": torch.as_tensor(l_all, device=xdev)}
             problem._dist_cache = cache
             problem._prec_stale = False
         dmat, solver = cache["dmat"], cache["solver"]
@@ -602,9 +602,10 @@ class LinearSolver:
 
         The pipeline is cached on the problem (`_pipe_cache`) under a key
         of the block kinds and parameters (per-element data by content)
-        and the shard count; the solution and the RHS ride their shard
-        mirrors (`BlockVector._dist_mirror`), so a Newton loop uploads the
-        solution once."""
+        and the shard count (a build opens the synchronised spans
+        `pipe.partition` and `pipe.finalize`); the solution and the RHS
+        ride their shard mirrors (`BlockVector._dist_mirror`), so a Newton
+        loop uploads the solution once."""
         from feddlib_tpu_torch.parallel import multihost
         from feddlib_tpu_torch.parallel.pipeline import DistributedPipeline
 
@@ -616,18 +617,15 @@ class LinearSolver:
             dom0 = problem.domains[0]
             base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
                          else dom0.mesh)
-            t0 = time.perf_counter()
-            part = MeshPartition(base_mesh, n_dev)
-            t1 = time.perf_counter()
+            with timers.timer("pipe.partition", sync=True):
+                part = MeshPartition(base_mesh, n_dev)
             pipe = DistributedPipeline(
                 part, [(dom, dofs) for dom, dofs, _ in problem.variables])
             for i, j, kind, prm in pblocks:
                 pipe.add_block(i, j, kind, **prm)
             pipe.finalize(multihost.global_device_axis(n_dev,
                                                        problem.device))
-            pc = {"key": pkey, "pipe": pipe, "part": part,
-                  "timings": {"partition_s": t1 - t0,
-                              "finalize_s": time.perf_counter() - t1}}
+            pc = {"key": pkey, "pipe": pipe, "part": part}
             problem._pipe_cache = pc
         pipe = pc["pipe"]
         x_dist = None
@@ -664,18 +662,18 @@ class LinearSolver:
         """The preconditioner build and the Krylov loop of the pipeline
         path.  The preconditioner and the solver are cached on the problem
         (`_pipe_prec`) and reused while not stale and on the same halo
-        plan; the matrix values always come from the fresh dmat."""
+        plan (a build opens the synchronised span `dist.precond`); the
+        matrix values always come from the fresh dmat."""
         from feddlib_tpu_torch.parallel.solve import DistributedSolver
 
         cache = getattr(problem, "_pipe_prec", None)
         if (cache is None or problem._prec_stale
                 or cache["plan"] is not dmat.plan):
-            t0 = time.perf_counter()
-            precond = _distributed_precond(problem, dmat, params,
-                                           blocks=block_specs)
+            with timers.timer("dist.precond", sync=True):
+                precond = _distributed_precond(problem, dmat, params,
+                                               blocks=block_specs)
             cache = {"plan": dmat.plan, "precond": precond,
-                     "solver": DistributedSolver(dmat, axis),
-                     "precond_s": time.perf_counter() - t0}
+                     "solver": DistributedSolver(dmat, axis)}
             problem._pipe_prec = cache
             problem._prec_stale = False
         solver = cache["solver"]

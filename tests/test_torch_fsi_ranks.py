@@ -82,17 +82,22 @@ def rank_main(modes=("GE", "GI")):
     shard count without 'Devices'."""
     import sys
 
+    from feddlib_tpu_torch.utils import timers
+
     torch.set_num_threads(2)
     out = {}
     for mode in modes:
+        timers.reset_counters("axis.xfer_bytes", "axis.xfer_calls")
         steps, log, sol, prob = torch_loop(mode)
         cache = prob._pipe_ge if mode == "GE" else prob._pipe_gi
         axis = cache["pipe"].axis
+        moved = timers.counters()
         out[mode] = {"steps": steps, "log": log, "sol": sol,
                      "slice": (axis.lo, axis.hi), "n_dev": axis.n_dev,
                      "local_rows": int(cache["pipe"].distribute(
                          prob.solution.concat()).shape[0]),
-                     "xfer": dict(axis.xfer)}
+                     "xfer": {k: moved.get("axis.xfer_" + k, 0)
+                              for k in ("bytes", "calls")}}
     dom_u, dom_p, dom_d = _two_box()
     from feddlib_tpu_torch.problems.fsi import FSI
     from feddlib_tpu_torch.utils.config import ParameterList
@@ -135,8 +140,10 @@ def test_ranks_hold_their_slices(runs):
         got = [r[mode] for r in runs["two"]]
         assert [g["slice"] for g in got] == [(0, 3), (3, 6)]
         assert all(g["n_dev"] == 6 and g["local_rows"] == 3 for g in got)
-        # the loops exchanged rows across the ranks
-        assert all(g["xfer"]["bytes"] > 0 for g in got)
+        # the loops exchanged rows across the ranks (the registry's
+        # counters of the collectives)
+        assert all(g["xfer"]["bytes"] > 0 and g["xfer"]["calls"] > 0
+                   for g in got)
     assert runs["one"]["GE"]["slice"] == (0, 6)
     assert not any(r["jax_loaded"] for r in runs["two"] + [runs["one"]])
 

@@ -1263,13 +1263,16 @@ def _card_fsi_ranks_main():
     from test_torch_fsi_ranks import torch_loop
 
     from feddlib_tpu_torch.parallel import multihost
+    from feddlib_tpu_torch.utils import timers
 
     dev = multihost.local_device("cuda")
     torch.cuda.set_device(dev)
+    timers.reset_counters("axis.xfer_bytes")
     steps, log, sol, prob = torch_loop("GE", dev)
     axis = prob._pipe_ge["pipe"].axis
     return {"steps": steps, "log": log, "sol": sol,
-            "slice": (axis.lo, axis.hi), "bytes": axis.xfer["bytes"]}
+            "slice": (axis.lo, axis.hi),
+            "bytes": timers.counters().get("axis.xfer_bytes", 0)}
 
 
 @pytest.mark.gpu

@@ -82,6 +82,7 @@ def _laplace(n=8, clusters=8):
 
 def test_mixed_solve_span_tree_and_counters(records):
     prob = _laplace()
+    records.clear()  # the assembly's `fe.pattern` spans: a tree of their own
     its = prob.solve()
     spans = _spans(records)
     by_id = _check_tree(spans)
@@ -147,6 +148,7 @@ def test_bdf2_step_span_tree_and_counters(records, monkeypatch):
     prob.assemble()
     prob.add_bc(lambda x, t: [0.0, 0.0, 0.0], 2, 0)
     f = ops.assemble_rhs(dom, lambda x: [0.0, 0.0, -0.05], 3)
+    records.clear()  # the assembly's `fe.pattern` spans: a tree of their own
     returned = []
     solve = nonlinear.NonLinearSolver.solve
 
@@ -321,3 +323,142 @@ def test_sync_span_synchronises_the_card(monkeypatch):
     with timers.timer("synced", sync=True) as span:
         x.sum()
     assert len(calls) == 2 and span.seconds > 0
+
+
+# -- the set-up spans that replaced the bring-up's `timings` dicts ----------
+
+def _f64_two_level():
+    prob = _laplace_with({"Subdomains": 4})
+    prob.solve()
+    prec = prob.preconditioner.prec
+    assert type(prec).__name__ == "TwoLevelSchwarz"
+    return [prec, prec.level1]
+
+
+def _one_level():
+    from feddlib_tpu_torch.mesh.partition import MeshPartition
+    from feddlib_tpu_torch.precond.schwarz import SchwarzPreconditioner
+
+    prob = _laplace_with({})
+    A = prob.bc_system().get_block(0, 0)
+    part = MeshPartition(prob.domains[0].mesh, 4)
+    return [SchwarzPreconditioner(A, part.unique_map)]
+
+
+def _distributed():
+    prob = _laplace_with({"Use Distributed Solve": True, "Devices": 4,
+                          "Preconditioner Type": "SchwarzTwoLevel"})
+    prob.solve()
+    cache = prob._dist_cache
+    assert "timings" not in cache
+    return [cache["dmat"], cache["precond"][0]]
+
+
+def _pipeline():
+    prob = _laplace_with({"Use Distributed Solve": True, "Devices": 4,
+                          "Use Device Pipeline": True,
+                          "Preconditioner Type": "SchwarzTwoLevel"})
+    prob.solve()
+    pc, pp = prob._pipe_cache, prob._pipe_prec
+    assert "timings" not in pc and "precond_s" not in pp
+    return [pc["pipe"], pp["precond"][0]]
+
+
+def _facsi():
+    from feddlib_tpu_torch.precond.facsi import FaCSIPreconditioner
+    from feddlib_tpu_torch.problems.fsi import FSI
+    from feddlib_tpu_torch.scenarios import two_box
+
+    dom_u, dom_p, dom_d, flag = two_box(3, "cpu")
+    prob = FSI(dom_u, dom_p, dom_d, [flag], parameter_list=ParameterList(
+        "P", {"dt": 0.02, "Viscosity": 0.5, "E": 5.0}), device="cpu")
+    prob.assemble()
+    prob.init_vectors()
+    prob.add_bc(lambda x, t: [0.0, 0.0], 1, 0)
+    prob.add_bc(lambda x, t: [0.0, 0.0], 1, 2)
+    prob._build_system("Newton", torch.zeros_like(prob.solution[0]),
+                       1.0 / prob.dt, 1.0 / (prob.newmark_beta * prob.dt ** 2))
+    pre = FaCSIPreconditioner(prob, prob.bc_system(), 2)
+    return [pre, pre.solid_prec, pre.fluid_prec]
+
+
+def _split_dia():
+    """An operator whose residue is not node-blocked
+    (tests/test_torch_formats.py)."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    from feddlib_tpu_torch.la.dia import SplitDiaMatrix
+
+    rng = np.random.default_rng(11)
+    nn, d = 400, 3
+    n = nn * d
+    band = sps.diags([np.ones(nn - 1), 2 * np.ones(nn), np.ones(nn - 1)],
+                     [-1, 0, 1])
+    blocks = sps.kron(band, rng.random((d, d)) + 1).tocsr()
+    i = rng.integers(0, nn - 6, 60)
+    j = i + rng.integers(2, 6, 60)
+    far = sps.csr_matrix((rng.random(60), (i * d, j * d)), (n, n))
+    A = (blocks + far + far.T).tocsr()
+    A.sort_indices()
+    F = SplitDiaMatrix.from_csr(A, dtype=torch.float64, dofs_per_node=d,
+                                device="cpu")
+    assert isinstance(F, SplitDiaMatrix)
+    return [F, F.with_data(torch.as_tensor(A.data))]
+
+
+def _laplace_with(params, n=6):
+    prob = Laplace(Domain.structured(3, n, device="cpu"),
+                   parameter_list=ParameterList("P", params), device="cpu")
+    prob.assemble()
+    prob.assemble_source(lambda x: 1.0 + 0 * x[0])
+    prob.add_bc(lambda x, t: 0.0, 1, 0)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+_L1 = {"prec.overlap": "prec.level1", "prec.factor": "prec.level1"}
+_DIST_L1 = {"prec.overlap": "prec.level1", "prec.overlap_plan": "prec.level1",
+            "prec.blocks": "prec.level1", "prec.factor": "prec.level1",
+            "prec.level1": "dist.precond", "prec.gdsw": "dist.precond",
+            "prec.phi": "dist.precond", "prec.coarse_solver": "dist.precond",
+            "dist.precond": None}
+_PIPE = {"pipe." + k: "pipe.finalize" for k in (
+    "keys", "patterns", "send", "rounds", "ell", "halo", "geometry",
+    "fields")}
+
+
+@pytest.mark.parametrize("build,tree", [
+    (_f64_two_level, dict(_L1, **{"prec.level1": None, "prec.gdsw": None})),
+    (_one_level, {"prec.overlap": None, "prec.factor": None}),
+    (_distributed, dict(_DIST_L1, **{
+        "dist.partition": None, "dist.matrix": None,
+        "dist.rows": "dist.matrix", "dist.halo_plan": "dist.matrix",
+        "dist.ell": "dist.matrix"})),
+    (_pipeline, dict(_DIST_L1, **_PIPE, **{
+        "pipe.partition": None, "pipe.finalize": None})),
+    (_facsi, {"facsi.solid": None, "facsi.fluid": None,
+              "prec.overlap": ("facsi.solid", "facsi.fluid"),
+              "prec.factor": ("facsi.solid", "facsi.fluid"),
+              "block.merge": "facsi.fluid"}),
+    (_split_dia, {"split." + k: None for k in (
+        "rcm", "permute", "dia_layout", "sell_layout", "gathers")}),
+], ids=["f64_two_level", "one_level", "distributed", "pipeline", "facsi",
+        "split_dia"])
+def test_setup_spans_replace_the_timings(records, build, tree):
+    """A build opens each set-up span of its part once (FaCSI's two
+    Schwarz builds each open theirs), synchronised, nested under the span
+    of the part it belongs to, and leaves no `timings` attribute: the
+    registry is the only measurement (utils/timers.py)."""
+    built = build()
+    spans = [s for s in _spans(records) if s.name in tree]
+    by_id = {s.id: s for s in _spans(records)}
+    got = {}
+    for s in spans:
+        parent = by_id[s.parent].name if s.parent is not None else None
+        got.setdefault(s.name, []).append(parent)
+        assert s.sync and s.end_ns >= s.start_ns, s.name
+    for name, parent in tree.items():
+        want = list(parent) if isinstance(parent, tuple) else [parent]
+        assert got.get(name) == want, (name, got.get(name))
+    assert not [type(o).__name__ for o in built if hasattr(o, "timings")]
