@@ -9,8 +9,11 @@ exits non-zero):
   2. main path: Laplace on Domain.structured(3, 64) (P1, 274,625 dofs),
      'Use Mixed Precision' + 'TwoLevel' with 512 clusters, solved to 1e-8
      through Problem.solve; the f64 residual is recomputed on the host with
-     scipy, the kernel launch counters must show B1, B2 and B3; a small
-     solve on the card must match the same solve on the CPU;
+     scipy, the kernel launch counters must show B1, B2 and B3; two more
+     solves capture and then replay the GMRES Arnoldi steps as CUDA graphs,
+     each giving the first solve's x bit for bit, the replay's profiler
+     trace naming B1, B2 and B3; a small solve on the card must match the
+     same solve on the CPU;
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (B4 at phase 4's, and at the main path's level-1
      inverse cast to bf16, 0.59 GB, beyond the L2), timed beside a one-call
@@ -3345,12 +3348,41 @@ def main(argv=None):
     cache = prob._mixed_cache
     db, split, prec = cache["db32"], cache["sell"], cache["prec"]
     mesh2 = prob.variables[0][0].mesh  # host arrays, for phase 16
-    # the same solve again with the built preconditioner: the refinement
-    # and inner GMRES time alone, under the benchmark's profiler reduction
-    # (benchmark/tracing.py) for the card's busy share
-    iters_again, tr = _traced(torch, dev, prob.solve)
+    # the same solve twice more with the built preconditioner: the first
+    # captures the Arnoldi steps (solvers/krylov.py ArnoldiPlan), the
+    # second replays them under the benchmark's profiler reduction
+    # (benchmark/tracing.py), which times the refinement and inner GMRES
+    # alone for the card's busy share; both give the first solve's x
+    u1 = u.clone()
+    again = []
+
+    def solve_again():
+        its, reg = _measured(prob.solve)
+        again.append((its, reg.counts, prob.solution[0].clone()))
+        return its
+
+    iters_again, tr = _traced(torch, dev, solve_again)
     t_ir = tr.window_s
     _check(abs(iters_again - iters) <= 2, "repeated solve iterations")
+    (its_c, cnt_c, u_c), (its_r, cnt_r, u_r) = again
+    print(f"main path: repeated solves {its_c}, {its_r} iterations; "
+          f"graph captures {cnt_c.get('krylov.graph_captures', 0)}, "
+          f"{cnt_r.get('krylov.graph_captures', 0)}, replays "
+          f"{cnt_c.get('krylov.graph_replays', 0)}, "
+          f"{cnt_r.get('krylov.graph_replays', 0)}", flush=True)
+    _check(cnt_c.get("krylov.graph_captures", 0) > 0,
+           "the second solve captured no Arnoldi step")
+    _check(cnt_r.get("krylov.graph_captures", 0) == 0
+           and cnt_r.get("krylov.graph_replays", 0)
+           == cnt_r["krylov.iterations"] == its_r,
+           "the profiled solve replayed every iteration")
+    _check(its_c == its_r == iters and torch.equal(u_c, u1)
+           and torch.equal(u_r, u1),
+           "the capturing and the replaying solves against the first, "
+           "bit for bit")
+    for k in ("permute_gather", "sell_spmv", "dense_gemv_f32"):
+        _check(tr.kernel(k) is not None,
+               f"the replayed solve's trace names no {k}")
     print(f"main path: the repeated solve under the profiler: "
           f"{sum(v[1] for v in tr.kernels.values())} device events, busy "
           f"{tr.busy_s * 1e3:.3f} ms (union of kernels and copies) of "

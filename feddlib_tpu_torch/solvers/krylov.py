@@ -7,6 +7,16 @@ GMRES copies the new Hessenberg column to the host, where the Givens
 rotations, the residual estimate and the convergence test run in the
 vector dtype; CG reads back its residual norm.
 
+GMRES's Arnoldi step (`arnoldi_step`: w = A(M(V[j])), both DGKS passes,
+the norm and V[j+1]) is one function of (V, j).  The eager loop calls it
+op by op.  Given an `ArnoldiPlan`, the loop instead replays the step as a
+CUDA graph, captured once per step index j on first need, that also
+copies the column into a pinned host buffer; the host then waits on one
+event an iteration and runs the same Givens update.  The arithmetic is
+the eager loop's, kernel for kernel on the same shapes.  Only the mixed-
+precision solve makes a plan (solvers/linear.py `_arnoldi_plan`), and
+only for operators that outlive a solve on a CUDA device.
+
 Conventions (as in the JAX package):
 - `A`, `M` are callables x→y; preconditioning is on the RIGHT unless
   `gmres(left=True)`;
@@ -20,8 +30,10 @@ Spans (utils/timers.py): `krylov.gmres` / `krylov.cg` around a loop;
 while the registry is observed (`timers.observed()`: a subscriber or a
 running profiler) also `operator.apply` around each A(x), `precond.apply`
 around each M(x) where a preconditioner is given and `krylov.sync` around
-GMRES's host copy.  Counters `krylov.iterations` and `krylov.cycles`
-(restarts; one for CG).
+GMRES's host copy (a replay's event wait).  A replayed step opens no span
+inside it, and a loop with a plan opens no `precond.apply` at all.  Counters `krylov.iterations` and `krylov.cycles` (restarts;
+one for CG); with a plan also `krylov.graph_captures` (one a step graph
+captured) and `krylov.graph_replays` (one a replayed iteration).
 """
 
 from __future__ import annotations
@@ -121,8 +133,10 @@ def _make_reducers(axis=None):
 
 def solve(kind: str, A_fn, A_ops, b, x0=None, M_fn=None, M_ops=(),
           tol: float = 1e-8, maxiter: int = 1000, restart: int = 100,
-          left: bool = False, record_history: bool = False) -> KrylovResult:
-    """Run CG or GMRES with operators in (fn, operands) form."""
+          left: bool = False, record_history: bool = False,
+          plan: Optional["ArnoldiPlan"] = None) -> KrylovResult:
+    """Run CG or GMRES with operators in (fn, operands) form; GMRES
+    replays its Arnoldi steps from `plan` where one is given."""
     def A(x):
         return A_fn(A_ops, x)
 
@@ -131,7 +145,8 @@ def solve(kind: str, A_fn, A_ops, b, x0=None, M_fn=None, M_ops=(),
         return cg(A, b, x0=x0, M=M, tol=tol, maxiter=maxiter,
                   record_history=record_history)
     return gmres(A, b, x0=x0, M=M, tol=tol, restart=restart,
-                 maxiter=maxiter, left=left, record_history=record_history)
+                 maxiter=maxiter, left=left, record_history=record_history,
+                 plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -193,31 +208,127 @@ def _cg_loop(A, M, b, x0, tol, maxiter, record, axis):
 def gmres(A: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
           M: Optional[Callable] = None, tol: float = 1e-8,
           restart: int = 100, maxiter: int = 1000, left: bool = False,
-          record_history: bool = False) -> KrylovResult:
+          record_history: bool = False,
+          plan: Optional["ArnoldiPlan"] = None) -> KrylovResult:
     """Restarted GMRES(m), right-preconditioned by default; `left=True`
     runs it on M A x = M b, its residuals those of the preconditioned
-    system (as in the JAX package).
+    system (as in the JAX package).  With `plan` (right preconditioning
+    only) the Arnoldi steps replay the plan's graphs of A and M.
 
     Orthogonalisation: classical Gram–Schmidt with one DGKS correction pass
     (Belos' default "DGKS")."""
     M = M or _identity
     x0 = torch.zeros_like(b) if x0 is None else x0
     x, total, relres, hist = gmres_loop(A, M, b, x0, tol, restart, maxiter,
-                                        record=record_history, left=left)
+                                        record=record_history, left=left,
+                                        plan=plan)
     return KrylovResult(x, total, relres, relres <= tol,
                         np.asarray(hist) if record_history else None)
 
 
 def gmres_loop(A, M, b, x0, tol, restart, maxiter, record=False,
-               left=False, axis=None):
+               left=False, axis=None, plan=None):
     with timers.timer("krylov.gmres"):
         return _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left,
-                           axis)
+                           axis, plan)
 
 
-def _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left, axis):
+def arnoldi_step(A, M, V, j, norm, allsum, left=False):
+    """Step j of Arnoldi: w = A(M(V[j])) (M(A(V[j])) with `left`),
+    classical Gram–Schmidt against V[:j+1] with one DGKS pass, and
+    V[j+1] = w / ||w||.  Returns the Hessenberg column [h1 + h2, ||w||]
+    (j + 2 values) on V's device."""
+    w = M(A(V[j])) if left else A(M(V[j]))
+    Vj = V[: j + 1]
+    h1 = allsum(Vj @ w)
+    w = w - Vj.T @ h1
+    h2 = allsum(Vj @ w)
+    w = w - Vj.T @ h2
+    wnorm = norm(w)
+    V[j + 1] = w / torch.where(wnorm == 0, torch.ones_like(wnorm), wnorm)
+    return torch.cat([h1 + h2, wnorm[None]])
+
+
+class ArnoldiPlan:
+    """The right-preconditioned Arnoldi step of one operator pair A, M
+    (callables x→y on CUDA tensors, whose operands outlive the plan) as
+    CUDA graphs, one per step index j so that V[:j+1] keeps its exact
+    shape.
+
+    The plan owns the basis V [m+1, n] and a pinned host buffer for the
+    Hessenberg column.  `launch(j)` replays the graph of step j, capturing
+    it first where it has none; the graph runs `arnoldi_step` and copies
+    the column into the buffer, and `column(j)` waits on one event and
+    reads it.  All graphs of a plan share one memory pool (no tensor a
+    graph makes outlives it) and replay on the caller's stream.  Nothing
+    touches the device before the first `vectors` call."""
+
+    def __init__(self, A: Callable, M: Callable):
+        self.A, self.M = A, M
+        self.V = None
+
+    def vectors(self, m: int, b: torch.Tensor) -> torch.Tensor:
+        """The basis for GMRES(m) on vectors like `b`, made on the first
+        call and kept across cycles and solves: the plan's operators fix
+        n, dtype and device, and its solves' parameters m."""
+        if self.V is None:
+            self.V = torch.empty((m + 1, b.shape[0]), dtype=b.dtype,
+                                 device=b.device)
+            self.col = torch.empty(m + 1, dtype=b.dtype, pin_memory=True)
+            self.host = self.col.numpy()
+            self.graphs = [None] * m
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(b.device)
+            self.ready = torch.cuda.Event()
+        assert self.V.shape == (m + 1, b.shape[0])
+        return self.V
+
+    def _step(self, j: int) -> None:
+        col = arnoldi_step(self.A, self.M, self.V, j, _norm, _identity)
+        self.col[: j + 2].copy_(col, non_blocking=True)
+
+    def _capture(self, j: int):
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize(self.V.device)
+        with torch.cuda.stream(self.stream):
+            if not any(self.graphs):
+                # warm up on the capture stream (its library handles and
+                # workspaces) before the plan's first capture; the replay
+                # rewrites the same V[j+1]
+                self._step(j)
+                self.stream.synchronize()
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+            try:
+                self._step(j)
+            finally:
+                graph.capture_end()
+        timers.count("krylov.graph_captures")
+        return graph
+
+    def launch(self, j: int) -> None:
+        graph = self.graphs[j]
+        if graph is None:
+            graph = self.graphs[j] = self._capture(j)
+        graph.replay()
+        self.ready.record()
+
+    def column(self, j: int) -> np.ndarray:
+        """Step j's Hessenberg column, once its replay has written it."""
+        self.ready.synchronize()
+        return self.host[: j + 2]
+
+
+def _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left, axis,
+                plan):
+    if plan is not None and (left or axis is not None):
+        raise ValueError("an ArnoldiPlan replays right-preconditioned "
+                         "steps of one process")
     _, norm, allsum = _make_reducers(axis)
-    A, M, span = _iteration_spans(A, M)
+    # with a plan M runs inside the replayed graphs, out of any span's
+    # sight, so its one eager M(dx) a cycle opens no `precond.apply` either
+    A, M_spanned, span = _iteration_spans(A, M)
+    M = M_spanned if plan is None else M
     n = b.shape[0]
     m = min(restart, maxiter)
     hdt = np.dtype(str(b.dtype).replace("torch.", ""))  # host Givens dtype
@@ -235,7 +346,8 @@ def _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left, axis):
         r = residual(x)
         beta_d = norm(r)
         beta = hdt.type(float(beta_d))
-        V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
+        V = (torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
+             if plan is None else plan.vectors(m, b))
         V[0] = r / torch.where(beta_d == 0, torch.ones_like(beta_d), beta_d)
         H = np.zeros((m + 1, m), hdt)
         cs = np.zeros(m, hdt)
@@ -244,18 +356,15 @@ def _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left, axis):
         g[0] = beta
         j, res = 0, beta
         while j < m and res / bnorm > tol:
-            w = M(A(V[j])) if left else A(M(V[j]))
-            Vj = V[: j + 1]
-            h1 = allsum(Vj @ w)
-            w = w - Vj.T @ h1
-            h2 = allsum(Vj @ w)
-            w = w - Vj.T @ h2
-            wnorm = norm(w)
-            V[j + 1] = w / torch.where(wnorm == 0, torch.ones_like(wnorm),
-                                       wnorm)
-            # the iteration's one host sync: the new Hessenberg column
-            with span("krylov.sync"):
-                col = torch.cat([h1 + h2, wnorm[None]]).cpu().numpy()
+            if plan is None:
+                hcol = arnoldi_step(A, M, V, j, norm, allsum, left)
+                # the iteration's one host sync: the new Hessenberg column
+                with span("krylov.sync"):
+                    col = hcol.cpu().numpy()
+            else:
+                plan.launch(j)
+                with span("krylov.sync"):  # the replay's one event wait
+                    col = plan.column(j)
             col = col.astype(hdt)
             H_col = np.zeros(m + 1, hdt)
             H_col[: j + 2] = col
@@ -285,6 +394,8 @@ def _gmres_loop(A, M, b, x0, tol, restart, maxiter, record, left, axis):
         dx = V[:j].T @ torch.as_tensor(y[:j], device=b.device)
         timers.count("krylov.cycles")
         timers.count("krylov.iterations", j)
+        if plan is not None:
+            timers.count("krylov.graph_replays", j)
         return x + (dx if left else M(dx)), j, float(res)
 
     x = x0

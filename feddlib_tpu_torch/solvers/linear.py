@@ -111,6 +111,27 @@ def point_cluster_operators(A, points, n_clusters: int, dofs_per_node: int):
     return db32, PaddedSplitSpMV(A, db32, dtype=torch.float32)
 
 
+def _arnoldi_plan(cache, reused: bool):
+    """The Arnoldi plan (solvers/krylov.py `ArnoldiPlan`) that a mixed-
+    precision solve replays its GMRES steps from: made on a solve that
+    reuses `cache` as it is, with its operators on a CUDA device, and kept
+    in it while the solves go on reusing it.  A solve that refreshed the
+    operator's values (`with_data`) or rebuilt the cache runs the eager
+    loop, and the refresh drops the plan (a rebuild makes a cache
+    without one)."""
+    from feddlib_tpu_torch.solvers.krylov import ArnoldiPlan
+
+    if not reused or cache["db32"].device.type != "cuda":
+        cache.pop("arnoldi", None)
+        return None
+    plan = cache.get("arnoldi")
+    if plan is None:
+        (A_fn, A_ops), (M_fn, M_ops) = cache["A_op"], cache["M_op"]
+        plan = cache["arnoldi"] = ArnoldiPlan(
+            lambda x: A_fn(A_ops, x), lambda x: M_fn(M_ops, x))
+    return plan
+
+
 class Preconditioner:
     """Preconditioner factory bound to a problem: builds once, reusable
     across solves, rebuilt on request (reassembly)."""
@@ -398,7 +419,9 @@ class LinearSolver:
         the whole inner loop in PADDED cluster space.  A span `solve.mixed`
         (utils/timers.py); a cache build adds the synchronised spans
         `mixed.partition` and `mixed.layout`, and `prec.setup` (the
-        one-level preconditioner's synchronised `prec.level1` inside)."""
+        one-level preconditioner's synchronised `prec.level1` inside).
+        On the card a solve that reuses the cache as it is replays its
+        GMRES steps as CUDA graphs (`_arnoldi_plan`)."""
         with timers.timer("solve.mixed"):
             return self._mixed(problem, A, b, params, tol, maxiter, restart)
 
@@ -418,6 +441,7 @@ class LinearSolver:
         # the operators and the factored preconditioner are kept on the
         # problem and reused while the matrix pattern is unchanged
         cache = getattr(problem, "_mixed_cache", None)
+        reused = True
         if (cache is not None and cache["pattern"] is A.pattern
                 and problem._prec_stale
                 and bool(params.get("Reuse Preconditioner", True))):
@@ -430,6 +454,7 @@ class LinearSolver:
             cache["sell"] = sell32
             cache["A_op"] = sell32.operator()
             problem._prec_stale = False
+            reused = False
         if (cache is None or cache["pattern"] is not A.pattern
                 or problem._prec_stale):
             dom0 = problem.domains[0]
@@ -484,6 +509,8 @@ class LinearSolver:
                      "M_op": prec32.padded_operator()}
             problem._mixed_cache = cache
             problem._prec_stale = False
+            reused = False
+        plan = _arnoldi_plan(cache, reused)
         db32 = cache["db32"]
         A_fn, A_ops = cache["A_op"]
         M_fn, M_ops = cache["M_op"]
@@ -491,7 +518,7 @@ class LinearSolver:
         def inner(r32):
             res = solve("gmres", A_fn, A_ops, db32.to_padded(r32),
                         M_fn=M_fn, M_ops=M_ops, tol=inner_tol,
-                        maxiter=maxiter, restart=restart)
+                        maxiter=maxiter, restart=restart, plan=plan)
             res.x = db32.from_padded(res.x)
             return res
 

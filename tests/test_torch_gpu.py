@@ -644,6 +644,101 @@ def test_two_field_mixed_path_runs_b123_on_card(hopper):
         < 1e-5
 
 
+# -- the Arnoldi step replayed as CUDA graphs ----------------------------------
+
+def _mixed_problem(case, device):
+    """A small one-field problem on the mixed two-level path: 3D P1
+    Laplace (Additive, as the benchmark's cells; Multiplicative, the
+    default) or P1 linear elasticity with the rigid-body null space, the
+    x = 0 face clamped."""
+    from feddlib_tpu_torch.mesh.structured import flag_boxed_boundary
+    from feddlib_tpu_torch.problems import Laplace, LinElas
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    params = {"Use Mixed Precision": True, "TwoLevel": True, "Clusters": 8}
+    if case == "elasticity":
+        dom = Domain.structured(3, 8, device=device)
+        flag_boxed_boundary(dom.mesh, [0.0] * 3, [1.0] * 3, {"x0": 2})
+        prob = LinElas(dom, parameter_list=ParameterList("P", dict(
+            params, **{"Null Space Type": "Elasticity",
+                       "Level Combination": "Additive"})), device=device)
+        prob.assemble()
+        prob.assemble_source(lambda x: [0.0, 0.0, -0.1])
+        prob.add_bc(lambda x, t: 0.0, 2, 0)
+    else:
+        if case == "laplace-additive":
+            params["Level Combination"] = "Additive"
+        prob = Laplace(Domain.structured(3, 12, device=device),
+                       parameter_list=ParameterList("P", params),
+                       device=device)
+        prob.assemble()
+        prob.assemble_source(lambda x: 1.0 + 0 * x[0])
+        prob.add_bc(lambda x, t: 0.0, 1, 0)
+    prob.set_boundaries_rhs()
+    return prob
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["laplace-additive", "laplace", "elasticity"])
+def test_arnoldi_graphs_replay_the_eager_solve_on_card(hopper, case):
+    """The solve that builds the mixed cache runs the eager loop, the next
+    captures the Arnoldi steps, the third replays every iteration: all
+    three give bit-equal x, iteration and pass counts.  A profiled replay
+    still names B3's kernel and opens no `precond.apply`; after a with_data refresh the solve captures
+    and replays nothing and drops the plan."""
+    from torch.autograd import DeviceType
+
+    from feddlib_tpu_torch.utils import timers
+
+    prob = _mixed_problem(case, hopper)
+    names = ("krylov.iterations", "krylov.graph_captures",
+             "krylov.graph_replays")
+
+    def solve():
+        before = timers.counters()
+        x, its = prob.linear_solver.solve_system(prob, prob.rhs)
+        torch.cuda.synchronize()
+        after = timers.counters()
+        assert prob.last_relres <= 1e-8
+        return (x.concat(), its, prob.last_passes,
+                [after.get(k, 0) - before.get(k, 0) for k in names])
+
+    x1, it1, p1, (n1, c1, r1) = solve()
+    assert n1 == it1 > 0 and c1 == r1 == 0
+    assert "arnoldi" not in prob._mixed_cache
+    x2, it2, p2, (n2, c2, r2) = solve()
+    assert 0 < c2 <= n2 and r2 == n2 == it2
+    plan = prob._mixed_cache["arnoldi"]
+    x3, it3, p3, (n3, c3, r3) = solve()
+    assert c3 == 0 and r3 == n3 == it3
+    assert prob._mixed_cache["arnoldi"] is plan
+    assert (it1, p1) == (it2, p2) == (it3, p3)
+    assert torch.equal(x1, x2) and torch.equal(x1, x3)
+
+    spans = []
+    timers.subscribe(spans.append)
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            x4, it4, _, (n4, c4, r4) = solve()
+    finally:
+        timers.unsubscribe(spans.append)
+    assert c4 == 0 and r4 == n4 == it4 == it1 and torch.equal(x4, x1)
+    # observed, a replaying loop waits in `krylov.sync`, no M in a span
+    opened = {r.name for r in spans if hasattr(r, "end_ns")}
+    assert "krylov.sync" in opened and "precond.apply" not in opened
+    kernels = {e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA}
+    assert any("dense_gemv_f32" in k for k in kernels), sorted(kernels)
+
+    prob._prec_stale = True  # a reassembly: the operator refreshed
+    x5, it5, p5, (n5, c5, r5) = solve()
+    assert c5 == r5 == 0 and n5 == it5 == it1 and p5 == p1
+    assert "arnoldi" not in prob._mixed_cache
+    assert torch.equal(x5, x1)
+
+
 # -- deterministic assembly, the fast path, B2 as the scatter, hyperelasticity --
 
 @pytest.mark.gpu
