@@ -686,11 +686,13 @@ def _phase8(torch, np, args, dev, hold_b123):
     torch.cuda.synchronize()
     t_asm = time.perf_counter() - t0
     # each Newton step's seconds from the program's spans: the assembly,
-    # the merge and the three parts rebuilt every step (BlockMatrix.merge
-    # makes a new pattern, so the mixed solve's cache never hits): the
-    # dof-map clusters and the padded SELL layout (`mixed.partition`,
-    # `mixed.layout`, rebalancing included), the level-1 factor
-    # (`prec.level1`), and the refinement (the solve proper)
+    # the merge (its pattern built at the first step and shared by the
+    # later merges) and the three parts rebuilt every step (the mixed
+    # solve keeps the one-level layout of a multi-field system for one
+    # merged matrix): the dof-map clusters and the padded SELL layout
+    # (`mixed.partition`, `mixed.layout`, rebalancing included), the
+    # level-1 factor (`prec.level1`), and the refinement (the solve
+    # proper)
     last = {}
     solve_system = prob.linear_solver.solve_system
 
@@ -1412,7 +1414,8 @@ def _phase11(torch, np, args, dev, hold_b123):
     # a time step's parts from the program's spans: the geometry solve
     # before its Newton, the tangent reassemblies (each builds the
     # system), the merges and the rebuilt clusters, SELL layout and level-1
-    # factor (BlockMatrix.merge makes a new pattern every Newton step), and
+    # factor (the mixed solve builds the one-level layout of a multi-field
+    # system anew for each merged matrix, so at every Newton step), and
     # the refinement (the solve proper)
     parts = (("geometry", "fsi.geometry"), ("tangent", "newton.tangent"),
              ("merge", "block.merge"), ("partition", "mixed.partition"),

@@ -17,6 +17,13 @@ from feddlib_tpu_torch.la.csr import CsrMatrix, SparsityPattern
 from feddlib_tpu_torch.utils import timers
 from feddlib_tpu_torch.utils.device import resolve_device
 
+# merged pattern of each block layout, across merges: (the block positions
+# with id() of each block's pattern, row sizes, col sizes) → (the block
+# patterns, merged pattern).  A Newton loop merges the same patterns at
+# every reassembly; one merged pattern lets the mixed solve's cache
+# (solvers/linear.py) refresh its values instead of rebuilding.
+_merged_pattern_cache: dict = {}
+
 
 class BlockVector:
     """List of per-block device vectors.
@@ -138,27 +145,32 @@ class BlockMatrix:
     def merge(self) -> CsrMatrix:
         """Flatten to one monolithic CSR with global block offsets.
         Memoized until a block changes; a build is the synchronised span
-        `block.merge` (utils/timers.py)."""
+        `block.merge` (utils/timers.py).  Merges of the same block
+        patterns share one merged pattern (`_merged_pattern_cache`)."""
         if self._merged is None:
             with timers.timer("block.merge", sync=True):
                 self._merged = self._merge()
         return self._merged
 
     def _merge(self) -> CsrMatrix:
-        row_off = np.concatenate([[0], np.cumsum(self.row_sizes)])
-        col_off = np.concatenate([[0], np.cumsum(self.col_sizes)])
-        n_rows, n_cols = int(row_off[-1]), int(col_off[-1])
-        rows_l, cols_l, vals_l = [], [], []
         items = sorted(self.blocks.items())
-        for (i, j), m in items:
-            pat = m.pattern
-            rows_l.append(pat.rows_of_slots() + row_off[i])
-            cols_l.append(pat.indices + col_off[j])
-            vals_l.append(m.data)
-        pat = SparsityPattern.from_coo(np.concatenate(rows_l),
-                                       np.concatenate(cols_l), n_rows, n_cols)
-        out = CsrMatrix(pat, device=items[0][1].device)
-        out.assemble(torch.cat(vals_l))
+        pats = tuple(m.pattern for _, m in items)
+        key = (tuple((i, j, id(m.pattern)) for (i, j), m in items),
+               tuple(self.row_sizes), tuple(self.col_sizes))
+        ent = _merged_pattern_cache.get(key)
+        if ent is None:
+            row_off = np.concatenate([[0], np.cumsum(self.row_sizes)])
+            col_off = np.concatenate([[0], np.cumsum(self.col_sizes)])
+            rows = np.concatenate([p.rows_of_slots() + row_off[i]
+                                   for ((i, _), _), p in zip(items, pats)])
+            cols = np.concatenate([p.indices + col_off[j]
+                                   for ((_, j), _), p in zip(items, pats)])
+            # hold the block patterns so the id() key stays valid
+            ent = (pats, SparsityPattern.from_coo(
+                rows, cols, int(row_off[-1]), int(col_off[-1])))
+            _merged_pattern_cache[key] = ent
+        out = CsrMatrix(ent[1], device=items[0][1].device)
+        out.assemble(torch.cat([m.data for _, m in items]))
         return out
 
     def __repr__(self):

@@ -256,10 +256,18 @@ class DenseBlockSchwarz:
     `FACTOR_CHUNK_BYTES` (the counter `level1.factor_chunks`; one chunk
     where all fit); on the CPU, host LAPACK in f64.
     `store_dtype=torch.bfloat16` stores the inverse in bf16 (kernel B4
-    applies it with f32 accumulation)."""
+    applies it with f32 accumulation).
+
+    Each block holds 1 on the diagonal of every lane that stores no
+    diagonal value, as the JAX package lays them out; with
+    `pad_identity_only=True` only the pad lanes get it, so a dof without a
+    stored diagonal (the pressure of a P2/P1 saddle-point system) keeps
+    its zero and the block is the subdomain's own saddle-point matrix —
+    the 1 there would solve a penalised local problem instead."""
 
     def __init__(self, A: CsrMatrix, db: DenseBlockSpMV, dtype=None,
-                 device_factor: Optional[bool] = None, store_dtype=None):
+                 device_factor: Optional[bool] = None, store_dtype=None,
+                 pad_identity_only: bool = False):
         dtype = dtype or db.dtype
         P, R = db.P, db.R
         W = db.blocks.shape[2]
@@ -294,6 +302,9 @@ class DenseBlockSchwarz:
                           + real[sub.col])
             slot_l.append(sub.data.astype(np.int64) - 1)
         data = A.data.to(dtype)
+        # the diagonal lanes that get a 1: every one, or the pad lanes only
+        eye_lanes = (colmap >= n if pad_identity_only
+                     else np.ones((P, W), bool))
 
         def blocks(p0, p1):
             """The subdomain matrices of clusters p0..p1-1, [p1-p0, W, W],
@@ -304,9 +315,9 @@ class DenseBlockSchwarz:
                 device=dev)
             slots = torch.as_tensor(np.concatenate(slot_l[p0:p1]),
                                     device=dev)
-            eye_idx = (torch.arange(k, device=dev)[:, None] * (W * W)
-                       + torch.arange(W, device=dev)[None, :] * (W + 1)
-                       ).reshape(-1)
+            q, lane = np.nonzero(eye_lanes[p0:p1])
+            eye_idx = torch.as_tensor(q * (W * W) + lane * (W + 1),
+                                      device=dev)
             b = torch.zeros(k * W * W, dtype=dtype, device=dev)
             b[eye_idx] = 1.0
             b[flat] = data[slots]
@@ -325,8 +336,8 @@ class DenseBlockSchwarz:
             timers.count("level1.factor_chunks", len(chunks))
             # a diagonal guard against exactly-singular blocks, 1e-6 of
             # the largest entry of all the blocks: the stored values they
-            # hold, and the identity's 1 on every diagonal lane that holds
-            # none
+            # hold, and the identity's 1 on the diagonal lanes that get it
+            # and hold no value
             seen = np.zeros(len(data), bool)
             n_diag = 0
             for f, sl in zip(flat_l, slot_l):
@@ -334,7 +345,8 @@ class DenseBlockSchwarz:
                 n_diag += int(np.count_nonzero(f % (W + 1) == 0))
             amax = data[torch.as_tensor(np.flatnonzero(seen),
                                         device=dev)].abs().max()
-            if n_diag < P * W:
+            if (bool((colmap >= n).any()) if pad_identity_only
+                    else n_diag < P * W):
                 amax = torch.clamp_min(amax, 1.0)
             symmetric = _blocks_symmetric(A)
             diag = torch.arange(W, device=dev)

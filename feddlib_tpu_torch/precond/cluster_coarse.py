@@ -122,9 +122,16 @@ class PaddedTwoLevelSchwarz:
                  coarse_store_dtype=None, blocks=None):
         """l1_store_dtype=torch.bfloat16 halves the level-1 inverse's bytes
         (kernel B4, f32 accumulation).  `blocks`, the per-block specs of
-        `GDSWCoarseOperator`, replace the coarse space of `part`'s own
-        nodes (`dofs_per_node`, `null_space`), as a P2 field needs.
-        `timings` holds the seconds of the synchronised spans
+        `GDSWCoarseOperator` (each field's offset, dofs per node, points,
+        repeated node sets and null space), replace the coarse space of
+        `part`'s own nodes (`dofs_per_node`, `null_space`), as a P2 field
+        and a multi-field system need: a saddle-point system gets the
+        velocity's translations and the pressure's constants on their own
+        interface components, extended through the merged interior
+        system (`GDSWCoarseOperator`'s 'monolithic'; one field extends
+        alike either way), and `dirichlet_mask` is the merged mask of all
+        blocks.  `coarse_per_block` counts the coarse functions of
+        each block.  `timings` holds the seconds of the synchronised spans
         `prec.level1`, `prec.gdsw` and `prec.coarse_layout`
         (utils/timers.py)."""
         from feddlib_tpu_torch.la.dense_blocks import DenseBlockSchwarz
@@ -144,8 +151,12 @@ class PaddedTwoLevelSchwarz:
             self.A_op = None
         dev = db.device
         with timers.timer("prec.level1", sync=True) as level1:
+            # the identity on the pad lanes only: a saddle-point block keeps
+            # its zero pressure diagonal (fields with a stored diagonal
+            # everywhere get the same blocks either way)
             self.level1 = DenseBlockSchwarz(A, db, dtype=dtype,
-                                            store_dtype=l1_store_dtype)
+                                            store_dtype=l1_store_dtype,
+                                            pad_identity_only=True)
         with timers.timer("prec.gdsw", sync=True) as gdsw:
             node_sets = None if blocks is not None else [
                 np.asarray(ix) for ix in part.repeated_map.partition_indices]
@@ -154,7 +165,8 @@ class PaddedTwoLevelSchwarz:
                 A, umap, node_part_sets=node_sets,
                 points=part.mesh.points, dofs_per_node=dofs_per_node,
                 null_space=null_space, dirichlet_mask=dirichlet_mask,
-                variant=variant, dtype=torch.float64, blocks=blocks)
+                variant=variant, dtype=torch.float64, blocks=blocks,
+                extension="monolithic")
         with timers.timer("prec.coarse_layout", sync=True) as layout:
             # A0⁻¹ on the card: ship the sparse A0 and invert in f32 there
             # (the coarse solve is preconditioner-only; the f64 outer
@@ -177,6 +189,8 @@ class PaddedTwoLevelSchwarz:
                                               store_dtype=coarse_store_dtype)
         self.timings = {"level1_s": level1.seconds, "gdsw_s": gdsw.seconds,
                         "coarse_layout_s": layout.seconds}
+        self.coarse_per_block = np.bincount(
+            co.column_block, minlength=len(blocks) if blocks else 1)
         self.n_coarse = self.coarse.nc
 
     def padded_operator(self):

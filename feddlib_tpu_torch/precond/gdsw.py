@@ -265,7 +265,9 @@ class GDSWCoarseOperator:
     keys {offset, node_part_sets, points, dofs_per_node, null_space};
     Φ is then block-diagonal (per-block interface classification and null
     spaces) while the energy-minimal extension and A₀ use the MERGED
-    matrix."""
+    matrix: `extension='blockwise'` solves each field's interior through
+    its own diagonal block, 'monolithic' solves the merged interior
+    system.  `column_block` names the block of each coarse column."""
 
     def __init__(self, A: Optional[CsrMatrix], unique_map: IndexMap,
                  node_part_sets: Optional[List[np.ndarray]] = None,
@@ -275,7 +277,8 @@ class GDSWCoarseOperator:
                  dtype=torch.float64, rap: str = "host",
                  blocks: Optional[List[dict]] = None,
                  variant: str = "GDSW", row_source=None,
-                 ipou: Optional[dict] = None, device=None):
+                 ipou: Optional[dict] = None, device=None,
+                 extension: str = "blockwise"):
         """A may be None when `row_source` gives the rows (the
         distributed setup); Φ then lives on `device`."""
         self.device = (A.device if A is not None
@@ -311,7 +314,8 @@ class GDSWCoarseOperator:
         # extending through them would pollute Φ)
         iface_dof = np.zeros(n, dtype=bool)
         cols = []
-        for blk in blocks:
+        col_block = []
+        for b, blk in enumerate(blocks):
             off = int(blk["offset"])
             dpn = int(blk["dofs_per_node"])
             pts = blk["points"]
@@ -364,6 +368,7 @@ class GDSWCoarseOperator:
                 good = diag > 1e-10 * max(diag.max(), 1e-300)
                 for j in np.nonzero(good)[0]:
                     cols.append((kept, Q[:, j]))
+                    col_block.append(b)
         nc = len(cols)
         if nc == 0:
             raise ValueError("empty coarse space (no interface components)")
@@ -380,18 +385,24 @@ class GDSWCoarseOperator:
 
         # harmonic extension per subdomain: interior = owned, non-interface,
         # non-Dirichlet dofs (energy-minimal extension, reuses the subdomain
-        # solves FROSch would — here sparse LU at setup).  Multi-block
-        # systems extend BLOCK-DIAGONALLY (each field through its own
-        # diagonal block — the FROSch monolithic construction): the merged
-        # interior matrix of a saddle-point system is singular, the field
-        # diagonal blocks are not.  A structurally empty diagonal block
-        # (P2/P1 pressure) gets the zero extension.
+        # solves FROSch would — here sparse LU at setup).  'blockwise' (the
+        # JAX package's) extends multi-block systems BLOCK-DIAGONALLY, each
+        # field through its own diagonal block; a structurally empty
+        # diagonal block (P2/P1 pressure) gets the zero extension.
+        # 'monolithic' extends all fields at once through the merged
+        # interior matrix — for a saddle-point system the interior Stokes /
+        # Oseen problem with the interface velocities AND pressures as its
+        # boundary values, which fix the interior pressure's constant
+        # (Heinlein, Hochmuth and Klawonn, SISC 41(4), 2019).  One block
+        # extends alike either way.
         interior_all = ~iface_dof
         if dirichlet_mask is not None:
             interior_all = interior_all & ~dirichlet_mask
         block_ranges = [(int(blk["offset"]),
                          int(blk["offset"]) + blk["points"].shape[0]
                          * int(blk["dofs_per_node"])) for blk in blocks]
+        if extension == "monolithic":
+            block_ranges = [(0, n)]
         local_rows = [row_source(p) for p in range(unique_map.n_parts)]
 
         def _extend(job):
@@ -404,6 +415,17 @@ class GDSWCoarseOperator:
             A_II = subI[:, I].tocsc()
             if A_II.nnz == 0:
                 return None  # structurally empty diagonal block
+            # an interior dof that no other interior dof couples to (a
+            # pressure whose velocities are all fixed, at a corner of the
+            # walls) keeps the zero extension: its row and column of the
+            # merged interior matrix are empty
+            live = (np.diff(A_II.indptr) > 0) & (np.bincount(
+                A_II.indices, minlength=len(I)) > 0)
+            if not live.all():
+                I, subI = I[live], subI[live]
+                A_II = A_II[:, live][live]
+                if len(I) == 0:
+                    return None
             # boundary of the extension = same-block interface dofs
             # adjacent to I
             Gcols = np.unique(subI.indices)
@@ -460,6 +482,8 @@ class GDSWCoarseOperator:
         if bad.any():
             A0s = (A0s + sps.diags(bad.astype(np.float64))).tocsr()
         self.n_coarse = nc
+        # the block of each coarse column (its field's null-space vector)
+        self.column_block = np.asarray(col_block, dtype=np.int64)
         self.phi = CsrMatrix.from_scipy(phi, dtype=dtype, device=self.device)
         self._phiT = None
         # A0 kept SPARSE; the dense form and its inverse are LAZY — the

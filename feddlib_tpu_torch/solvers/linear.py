@@ -27,6 +27,7 @@ the chain.
 from __future__ import annotations
 
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -107,6 +108,38 @@ def point_cluster_operators(A, points, n_clusters: int, dofs_per_node: int):
     from feddlib_tpu_torch.mesh.partition import partition_points
 
     cluster = np.repeat(partition_points(points, n_clusters), dofs_per_node)
+    db32 = DenseBlockSpMV.from_csr(A, cluster, dtype=torch.float32)
+    return db32, PaddedSplitSpMV(A, db32, dtype=torch.float32)
+
+
+def block_cluster_operators(A, problem, n_clusters: int):
+    """The f32 padded operators of the mixed-precision two-level solve of a
+    multi-field system whose fields all live on the leading domain's mesh
+    or on its P1 parent (P2/P1 Taylor–Hood, equal order): count-median
+    point RCB of the leading mesh's nodes, each dof in its node's cluster
+    and a P1 node in that of the P2 vertex node at its place, with no
+    rebalance, so a field's layout is the one-field layout of its nodes.
+    Returns the `DenseBlockSpMV` and the `PaddedSplitSpMV`, or None for
+    any other system (a field on a mesh of its own, a block without a
+    domain)."""
+    from feddlib_tpu_torch.la.dense_blocks import DenseBlockSpMV
+    from feddlib_tpu_torch.la.sell import PaddedSplitSpMV
+    from feddlib_tpu_torch.mesh.partition import partition_points
+
+    dom0 = problem.domains[0]
+    if len(problem.block_sizes()) != len(problem.variables):
+        return None
+    parent = dom0.parent_p1
+    for dom, _, _ in problem.variables:
+        if dom.mesh is not dom0.mesh and not (
+                parent is not None and dom.mesh is parent.mesh
+                and np.array_equal(dom0.mesh.points[:dom.mesh.n_points],
+                                   dom.mesh.points)):
+            return None
+    node_cluster = partition_points(dom0.mesh.points, n_clusters)
+    cluster = np.concatenate([np.repeat(node_cluster[:dom.mesh.n_points],
+                                        int(dofs))
+                              for dom, dofs, _ in problem.variables])
     db32 = DenseBlockSpMV.from_csr(A, cluster, dtype=torch.float32)
     return db32, PaddedSplitSpMV(A, db32, dtype=torch.float32)
 
@@ -419,9 +452,14 @@ class LinearSolver:
         the whole inner loop in PADDED cluster space.  A span `solve.mixed`
         (utils/timers.py); a cache build adds the synchronised spans
         `mixed.partition` and `mixed.layout`, and `prec.setup` (the
-        one-level preconditioner's synchronised `prec.level1` inside).
-        On the card a solve that reuses the cache as it is replays its
-        GMRES steps as CUDA graphs (`_arnoldi_plan`)."""
+        one-level preconditioner's synchronised `prec.level1` inside), and
+        counts `mixed.builds`; a refresh of the operator's values on an
+        unchanged pattern counts `mixed.refreshes`.  'TwoLevel' on a
+        multi-field system with a point layout (`block_cluster_operators`)
+        builds the monolithic block coarse space of `_block_specs`; any
+        other multi-field system takes the one-level Schwarz on dof-map
+        clusters, built anew for each merged matrix.  On the card a solve that reuses the cache as it is
+        replays its GMRES steps as CUDA graphs (`_arnoldi_plan`)."""
         with timers.timer("solve.mixed"):
             return self._mixed(problem, A, b, params, tol, maxiter, restart)
 
@@ -439,11 +477,14 @@ class LinearSolver:
         two_level = bool(params.get("TwoLevel", params.get("Two Level",
                                                            False)))
         # the operators and the factored preconditioner are kept on the
-        # problem and reused while the matrix pattern is unchanged
+        # problem and reused while the matrix pattern is unchanged; the
+        # one-level layout of a multi-field system is kept for its merged
+        # matrix alone, so each merge rebuilds it (`cache["matrix"]`)
         cache = getattr(problem, "_mixed_cache", None)
         reused = True
-        if (cache is not None and cache["pattern"] is A.pattern
-                and problem._prec_stale
+        same = (cache is not None and cache["pattern"] is A.pattern
+                and (cache["matrix"] is None or cache["matrix"]() is A))
+        if (same and problem._prec_stale
                 and bool(params.get("Reuse Preconditioner", True))):
             # reassembly with an unchanged pattern: refresh the OPERATOR
             # values on the device (with_data) and keep the factorized
@@ -455,8 +496,8 @@ class LinearSolver:
             cache["A_op"] = sell32.operator()
             problem._prec_stale = False
             reused = False
-        if (cache is None or cache["pattern"] is not A.pattern
-                or problem._prec_stale):
+            timers.count("mixed.refreshes")
+        if not same or problem._prec_stale:
             dom0 = problem.domains[0]
             base_mesh = (dom0.parent_p1.mesh if dom0.parent_p1 is not None
                          else dom0.mesh)
@@ -467,11 +508,14 @@ class LinearSolver:
             d0 = (int(problem.variables[0][1])
                   if getattr(problem, "variables", None) else 0)
             with timers.timer("mixed.layout", sync=True):
+                ops32 = None
                 if len(problem.domains) == 1 and d0 > 0 \
                         and A.shape[0] == n_pts * d0:
-                    db32, sell32 = point_cluster_operators(
+                    ops32 = point_cluster_operators(
                         A, dom0.mesh.points, n_clusters, d0)
-                else:
+                elif two_level and len(problem.domains) > 1:
+                    ops32 = block_cluster_operators(A, problem, n_clusters)
+                if ops32 is None:
                     cluster = np.zeros(A.shape[0], dtype=np.int32)
                     for p, ix in enumerate(dof_map.partition_indices):
                         cluster[ix] = p
@@ -479,22 +523,27 @@ class LinearSolver:
                                                    dtype=torch.float32,
                                                    balance=True)
                     sell32 = PaddedSplitSpMV(A, db32, dtype=torch.float32)
+                else:
+                    db32, sell32 = ops32
             with timers.timer("prec.setup"):
-                if two_level and len(problem.domains) == 1:
+                if two_level and (len(problem.domains) == 1
+                                  or ops32 is not None):
                     from feddlib_tpu_torch.precond.cluster_coarse import (
                         PaddedTwoLevelSchwarz)
 
                     nsp = params.get("Null Space Type", "laplace").lower()
                     nsp = "elasticity" if "elas" in nsp else "laplace"
-                    # a one-field problem takes its coarse space from its
-                    # own nodes (P2: the nodes of each part's elements),
-                    # as the f64 path does
-                    blocks = (problem.preconditioner._block_specs(part, nsp)
-                              if len(problem.variables) == 1 else None)
+                    # each field takes its coarse space from its own nodes
+                    # (P2: the nodes of each part's elements), as the f64
+                    # path does; a multi-field system's is block-diagonal
+                    # on the interface and extended through the merged
+                    # interior system (the f64 path keeps the JAX
+                    # package's block-wise extension, which leaves a
+                    # saddle-point coarse level no better than level 1)
                     prec32 = PaddedTwoLevelSchwarz(
-                        A, part, db32,
-                        dofs_per_node=A.shape[0] // base_mesh.n_points,
-                        null_space=nsp, blocks=blocks,
+                        A, part, db32, null_space=nsp,
+                        blocks=problem.preconditioner._block_specs(part,
+                                                                   nsp),
                         variant=params.get("Coarse Space Variant", "GDSW"),
                         dirichlet_mask=problem.merged_dirichlet_mask(),
                         dof_map=dof_map,
@@ -506,10 +555,13 @@ class LinearSolver:
                         prec32 = DenseBlockSchwarz(A, db32)
             cache = {"pattern": A.pattern, "db32": db32, "sell": sell32,
                      "prec": prec32, "A_op": sell32.operator(),
-                     "M_op": prec32.padded_operator()}
+                     "M_op": prec32.padded_operator(),
+                     "matrix": (weakref.ref(A) if ops32 is None
+                                and len(problem.variables) > 1 else None)}
             problem._mixed_cache = cache
             problem._prec_stale = False
             reused = False
+            timers.count("mixed.builds")
         plan = _arnoldi_plan(cache, reused)
         db32 = cache["db32"]
         A_fn, A_ops = cache["A_op"]

@@ -739,6 +739,77 @@ def test_arnoldi_graphs_replay_the_eager_solve_on_card(hopper, case):
     assert torch.equal(x5, x1)
 
 
+@pytest.mark.gpu
+def test_cavity_block_two_level_replays_on_card(hopper):
+    """The Re 100 lid-driven cavity at 8^3 cells (P2/P1) through the block
+    two-level mixed path on the card: Newton builds the cache once and
+    refreshes it; against the frozen Jacobian the first solve (after the
+    refresh) runs the eager loop, launching B1, B2 and B3, the next
+    captures and the third replays every iteration.  The three agree to
+    the solve's accuracy, not bit for bit: the padded operator of the
+    saddle point spills rows to B2's COO tail, whose `index_add` sums with
+    atomics in a run-dependent order (two eager solves differ as well)."""
+    from feddlib_tpu_torch.la.block import BlockVector
+    from feddlib_tpu_torch.precond.cluster_coarse import (
+        PaddedTwoLevelSchwarz)
+    from feddlib_tpu_torch.problems import NavierStokes
+    from feddlib_tpu_torch.solvers.nonlinear import NonLinearSolver
+    from feddlib_tpu_torch.utils import timers
+    from feddlib_tpu_torch.utils.config import ParameterList
+
+    dom_p = Domain.structured(3, 8, device=hopper)
+    prob = NavierStokes(dom_p.p2_domain(), dom_p, parameter_list=ParameterList(
+        "P", {"Viscosity": 0.01, "Use Mixed Precision": True,
+              "TwoLevel": True, "Level Combination": "Additive",
+              "Clusters": 8, "Maximum Iterations": 300,
+              "Num Blocks": 300}), device=hopper)
+    prob.assemble()
+    prob.add_bc(lambda x, t: torch.stack(
+        [(x[2] == 1.0).double(), 0.0 * x[0], 0.0 * x[0]]), 1, 0)
+    names = ("mixed.builds", "mixed.refreshes", "krylov.iterations",
+             "krylov.graph_captures", "krylov.graph_replays",
+             "kernel.permute_gather", "kernel.sell_spmv",
+             "kernel.dense_gemv_f32")
+    before = timers.counters()
+    its = NonLinearSolver("Newton").solve(prob)
+    after = timers.counters()
+    builds, refreshes = (after.get(k, 0) - before.get(k, 0)
+                         for k in names[:2])
+    assert its >= 2 and builds == 1 and refreshes == its - 1
+    assert isinstance(prob._mixed_cache["prec"], PaddedTwoLevelSchwarz)
+    prob.reassemble("Newton")
+    frozen = prob.bc_system()
+    prob.bc_system = lambda: frozen
+    # a momentum load: zero on the walls and in the pressure rows, so it
+    # lies in the range of the Jacobian (whose pressure is free)
+    nu, n_p = prob.block_sizes()
+    g = torch.Generator().manual_seed(22)
+    bu = 1e-3 * torch.randn(nu, generator=g, dtype=torch.float64)
+    bu[torch.as_tensor(prob.merged_dirichlet_mask()[:nu])] = 0.0
+    b = BlockVector([bu.to(hopper), torch.zeros(n_p, dtype=torch.float64,
+                                                device=hopper)])
+
+    def solve():
+        before = timers.counters()
+        x, its = prob.linear_solver.solve_system(prob, b)
+        torch.cuda.synchronize()
+        after = timers.counters()
+        assert prob.last_relres <= 1e-8
+        return (x.concat(), its, prob.last_passes,
+                [after.get(k, 0) - before.get(k, 0) for k in names[2:]])
+
+    x1, it1, p1, (n1, c1, r1, k1, k2, k3) = solve()
+    assert n1 == it1 > 0 and c1 == r1 == 0
+    assert k1 > 0 and k2 > 0 and k3 > 0
+    x2, it2, p2, (n2, c2, r2, *_) = solve()
+    assert 0 < c2 <= n2 and r2 == n2 == it2
+    x3, it3, p3, (n3, c3, r3, *_) = solve()
+    assert c3 == 0 and r3 == n3 == it3
+    assert p1 == p2 == p3 and max(it1, it2, it3) - min(it1, it2, it3) <= 2
+    for x in (x2, x3):  # the velocities (the pressure is free)
+        assert (x - x1)[:nu].abs().max() <= 1e-6 * x1[:nu].abs().max()
+
+
 # -- deterministic assembly, the fast path, B2 as the scatter, hyperelasticity --
 
 @pytest.mark.gpu
